@@ -17,3 +17,16 @@ __version__ = "0.1.0"
 # the NCC contractions and projections must stay full fp32 on the GPU
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: the GPU unless the caller asks for
+    the CPU. Raises RuntimeError when a CUDA device is asked for and none is
+    visible -- there is no silent fallback to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "hpmvs_tpu_torch needs an NVIDIA GPU, and torch sees no CUDA "
+            "device; pass device=\"cpu\" (CLI: --device cpu) to run on the "
+            "CPU")
+    return dev

@@ -59,8 +59,9 @@ def main(argv=None) -> int:
     ap.add_argument("--covis_min_points", type=int, default=None,
                     help="min shared SfM points for a covisible pair "
                          "(reference hardcodes 50, Scene.cpp:272)")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; the run fails when no "
+                         "GPU is visible; --device cpu runs on the CPU)")
     for flag in NOT_PORTED:
         ap.add_argument(f"--{flag}", nargs="?", const=True, default=None,
                         help="not yet ported")

@@ -73,14 +73,16 @@ class Options:
     SEED_DRIFT: float = 2.0            # Scene.cpp:171 (x scale)
 
     # ---- engine knobs (no reference equivalent) ----
-    # Fields kept for parity with hpmvs_tpu.config.Options; the port runs
-    # only the path each default selects (cached windows, batched stages,
-    # FAST_SETREF, the exact-Jacobian GN kernel) and raises
-    # NotImplementedError for the others (ops/optimizer._check_supported).
-    USE_WINDOWS: bool = True   # cached-window sampling (ops/windows.py)
-    USE_PALLAS_GN: bool = True  # JAX package: fused GN kernel on TPU; the
-                               # port always refines with ops/gn.py
-    USE_BATCHED_STAGES: bool = True  # batch-level stage pipeline
+    # Same meaning as in hpmvs_tpu.config.Options (ops/optimizer.py selects
+    # the stage pipeline and the refiner from them).
+    USE_WINDOWS: bool = True   # cached-window sampling (ops/windows.py);
+                               # False samples the full images and refines
+                               # with the plain _optimize_patch
+    USE_PALLAS_GN: bool = True  # refine with the GN kernel (ops/gn.py);
+                               # False selects the plain refiner
+                               # ops/optimizer._optimize_patch
+    USE_BATCHED_STAGES: bool = True  # batch-level stage pipeline (kernels
+                               # B2/B3); False runs the per-patch stages
     REUSE_POST_WINDOWS: bool = True  # post stage keeps pre-stage windows for
                                # surviving view slots; only new views are
                                # fetched (see _run_post_b docstring)
@@ -88,16 +90,18 @@ class Options:
                                # spans ~7 px at the sampling level, leaving
                                # ~2.5 px drift margin)
     FAST_SETREF: bool = True   # setRefImage with shared slot-0 tangent frame
-                               # (K sampling passes instead of K^2; the
+                               # (one sampling pass instead of K; the
                                # reference re-derives the frame per candidate
-                               # ref -- documented divergence)
+                               # ref -- documented divergence). False runs
+                               # the reference's semantics on the per-patch
+                               # stages.
     MAX_VIEWS: int = 16        # view slots per patch (reference: unbounded list)
     MAX_COVIS: int = 32        # covisible candidates considered per ref image
-    LM_ITERS: int = 12         # FD/Broyden mode iterations (not ported)
+    LM_ITERS: int = 12         # FD/Broyden mode iterations
     LM_INNER: int = 3          # FD/Broyden trial steps per Jacobian refresh
     LM_LAMBDA0: float = 1e-2   # initial Levenberg damping
-    LM_EXACT_J: bool = True    # analytic-Jacobian Levenberg loop (the only
-                               # GN mode the port runs)
+    LM_EXACT_J: bool = True    # analytic-Jacobian Levenberg loop; False
+                               # runs the FD/Broyden mode
     LM_ITERS_EXACT: int = 8    # iterations of the exact-J loop
     LM_STEP_CLAMP: float = 4.0  # exact-J trust region: |step| <= clamp * h
                                # per iteration (h = natural param scales);

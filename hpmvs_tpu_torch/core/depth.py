@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hpmvs_tpu_torch import resolve_device
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.geom import camera as cam_ops
 
@@ -44,9 +45,11 @@ class DepthPack:
 
 
 def build_depth_pack(img_width: np.ndarray, img_height: np.ndarray,
-                     subsample: int = 2, device="cpu") -> DepthPack:
+                     subsample: int = 2, device="cuda") -> DepthPack:
     """Allocate per-(image,level) buffers of (H/subsample, W/subsample)
-    (Scene.cpp:74-81, integer division)."""
+    (Scene.cpp:74-81, integer division) on `device` (the GPU unless
+    device="cpu")."""
+    device = resolve_device(device)
     ncam, nlevel = img_width.shape
     offset = np.zeros((ncam, nlevel), dtype=np.int32)
     width = np.zeros((ncam, nlevel), dtype=np.int32)

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from hpmvs_tpu_torch import resolve_device
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.geom import camera as cam_ops
 from hpmvs_tpu_torch.geom.triangulation import triangulate_midpoint
@@ -74,10 +75,12 @@ def extract_covisibility(model: nvm_io.NvmModel, opt: Options,
 
 def build_scene(model: nvm_io.NvmModel, opt: Options,
                 images: Optional[list] = None,
-                visdata_path: Optional[str] = None, device="cpu") -> Scene:
+                visdata_path: Optional[str] = None, device="cuda") -> Scene:
     """Load images, build cameras and the device scene context
-    (Scene::addCameras, Scene.cpp:42-88). images: optional in-memory
-    (H, W, 3) uint8 images used instead of the NVM's files."""
+    (Scene::addCameras, Scene.cpp:42-88) on `device` (the GPU unless
+    device="cpu"). images: optional in-memory (H, W, 3) uint8 images used
+    instead of the NVM's files."""
+    device = resolve_device(device)
     if images is None:
         imgs = pyr.load_scene_images(model.cameras, opt.n_levels)
     else:

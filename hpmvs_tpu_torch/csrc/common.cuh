@@ -79,14 +79,18 @@ __device__ __forceinline__ void bilinear3_grad(const float* __restrict__ win,
 
 // Patch2d::normalize (Patch2d.hpp:46-84) in place on tex[c][t]: subtract the
 // per-channel mean, multiply by 1/std over all channels (1 when std is 0).
-// Returns inv = 1/std for the tangent below.
+// Returns inv = 1/std for the tangent below. Sums run in texel order, then
+// channel order (the plain twins sum in the same order). The texel loops
+// unroll by one grid row (see gn.cu).
 __device__ __forceinline__ float normalize_patch(float tex[3][kP2]) {
   float var = 0.0f;
   for (int c = 0; c < 3; ++c) {
     float s = 0.0f;
+#pragma unroll 7
     for (int t = 0; t < kP2; ++t) s += tex[c][t];
     const float mc = s / kP2;
     float v = 0.0f;
+#pragma unroll 7
     for (int t = 0; t < kP2; ++t) {
       const float u = tex[c][t] - mc;
       tex[c][t] = u;
@@ -97,6 +101,7 @@ __device__ __forceinline__ float normalize_patch(float tex[3][kP2]) {
   const float sd = sqrtf(var / (kP2 * 3.0f));
   const float inv = (sd == 0.0f) ? 1.0f : 1.0f / sd;
   for (int c = 0; c < 3; ++c)
+#pragma unroll 7
     for (int t = 0; t < kP2; ++t) tex[c][t] *= inv;
   return inv;
 }

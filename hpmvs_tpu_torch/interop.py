@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hpmvs_tpu_torch import resolve_device
 from hpmvs_tpu_torch.core.depth import DepthPack
 from hpmvs_tpu_torch.geom.camera import Cameras
 from hpmvs_tpu_torch.image.pyramid import ImagePack
@@ -19,10 +20,12 @@ from hpmvs_tpu_torch.ops.optimizer import SceneCtx
 
 
 def scene_ctx_from_numpy(cams, tex, row0, width, height, covis, ncovis,
-                         device="cpu") -> SceneCtx:
+                         device="cuda") -> SceneCtx:
     """cams: mapping of Cameras field name -> array (P, center, fsum, xaxis,
     yaxis, zaxis, oaxis, ipscale); tex (rows, wmax, 3) f32; row0/width/
-    height (ncam, nlevel) int32; covis (ncam, C) int32; ncovis (ncam,)."""
+    height (ncam, nlevel) int32; covis (ncam, C) int32; ncovis (ncam,).
+    On the GPU unless device="cpu"."""
+    device = resolve_device(device)
     def t(a, dtype):
         return torch.tensor(np.asarray(a, dtype), device=device)
 
@@ -34,9 +37,11 @@ def scene_ctx_from_numpy(cams, tex, row0, width, height, covis, ncovis,
 
 
 def depth_pack_from_numpy(depth, offset, width, height,
-                          device="cpu") -> DepthPack:
+                          device="cuda") -> DepthPack:
     """depth (cells,) f32; offset/width/height (ncam, nlevel) int32. The
-    depth tensor is a copy (the port updates it in place)."""
+    depth tensor is a copy (the port updates it in place). On the GPU
+    unless device="cpu"."""
+    device = resolve_device(device)
     return DepthPack(
         depth=torch.tensor(np.asarray(depth, np.float32), device=device),
         offset=torch.tensor(np.asarray(offset, np.int32), device=device),

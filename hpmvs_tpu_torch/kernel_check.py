@@ -6,16 +6,32 @@ through the pre stage (view growth, window fetch, NCC filter, sort) on the
 device, and each kernel is called on exactly the tensors the optimizer hands
 it there. Used by chip_smoke.py and tests/test_torch_kernels_cuda.py.
 
+Every result carries its bound: the least time an H100 SXM could take for
+the same work, the larger of the bytes the function must move (each input
+read once, each output written once) over 3.35 TB/s and the float32
+operations it does on these inputs over 67 TFLOP/s (no tensor cores). For
+the GN modes the operations are counted from the passes this run's data
+needed (the twin reports how many 128-patch block passes ran) times the
+kernel's per-pass arithmetic (flops_per_pass). `library_ms` times one
+PyTorch call that computes the same function where there is one (fetch: one
+advanced-indexing gather; permute: one torch.gather), else None.
+
 Tolerances:
   fetch (B1), permute (B3): bit-exact (copies).
   score (B2): 2e-5 on the normalized textures; the centre colour (raw
     0..255 values, where one float32 ulp is 1.5e-5) to 2e-5 relative.
-  gn (B4): the objective at x0 (no iterations) to 1e-5 on every patch; after
-    the full loop the centre (depth parameter) within 2e-3 and f within 5e-3
-    on at least 95% of the patches. The 3x3 Gauss-Newton systems are often
-    ill-conditioned (condition numbers near 1e6), so the kernel's fused
-    multiply-adds and summation order move a few patches onto another
-    accept/reject path; the value-pass check pins the arithmetic itself.
+  gn (B4) and gn_fd (B5): the objective at x0 (no iterations) to 1e-5 on
+    every patch with x bit-equal; after the full loop the centre (depth
+    parameter) within 2e-3 and f within 5e-3 on at least 95% of the
+    patches. The 3x3 Gauss-Newton systems are often ill-conditioned
+    (condition numbers near 1e6), so the kernel's fused multiply-adds and
+    summation order move a few patches onto another accept/reject path; the
+    value-pass check pins the arithmetic itself. The FD mode divides rho
+    differences by the FD step, so it is the more sensitive of the two: the
+    detail line also reports how many patches the twin itself moves past
+    the same bounds when x0 is perturbed by 1e-6 (its own sensitivity).
+  gn_debug_j: rho at x0 to 1e-5 and the analytic J to 1e-4 + 1e-4 |J| on
+    every patch, f at x0 to 1e-5, x returned bit-equal.
 """
 
 from __future__ import annotations
@@ -35,8 +51,13 @@ KERNELS = {
               "hpmvs_tpu/ops/pallas_score.py:48"),
     "permute": ("hpmvs_tpu_torch/csrc/permute.cu",
                 "hpmvs_tpu/ops/pallas_score.py:249"),
-    "gn": ("hpmvs_tpu_torch/csrc/gn.cu", "hpmvs_tpu/ops/pallas_gn.py:197"),
+    "gn": ("hpmvs_tpu_torch/csrc/gn.cu", "hpmvs_tpu/ops/pallas_gn.py:475"),
+    "gn_fd": ("hpmvs_tpu_torch/csrc/gn.cu",
+              "hpmvs_tpu/ops/pallas_gn.py:524"),
 }
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 without tensor cores
+F32 = 4
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -89,14 +110,52 @@ class KernelResult:
     plain_ms: float
     ok: bool
     detail: str
+    bytes: float = 0.0          # bytes the function must move
+    flops: float = 0.0          # float32 operations it does on these inputs
+    library_ms: float = None    # one PyTorch call computing the same, or None
+
+    @property
+    def bound_ms(self) -> float:
+        return 1e3 * max(self.bytes / HBM_BYTES_PER_S,
+                         self.flops / FP32_FLOPS_PER_S)
+
+    @property
+    def bound_by(self) -> str:
+        return ("bytes" if self.bytes / HBM_BYTES_PER_S
+                >= self.flops / FP32_FLOPS_PER_S else "operations")
 
     def record(self, launches: int) -> dict:
         src, rep = KERNELS[self.name]
         return {"name": self.name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": int(launches),
                 "max_abs_err": self.max_abs_err, "ms": self.ms,
-                "plain_ms": self.plain_ms, "ok": self.ok,
-                "detail": self.detail}
+                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "bound_by": self.bound_by, "library_ms": self.library_ms,
+                "ok": self.ok, "detail": self.detail}
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+# Float32 operations of the kernels' arithmetic, counted from csrc/*.cuh and
+# csrc/gn.cu (a multiply-add counts 2; sin, cos, rsqrt and divisions 1).
+SAMPLE_FLOPS = 2 * 4 + 2 * 8 + 3 * 9     # grid coords, 2 tap sets, 3 channels
+NORMALIZE_FLOPS = 3 * 5 + 3             # per texel: mean, centre, var, scale
+VIEW_GEOM_FLOPS = 150                   # per view: projections and gates
+PATCH_GEOM_FLOPS = 120                  # per pass: frame, normal, axes
+
+
+def flops_per_pass(K: int, grad: bool) -> float:
+    """Float32 operations of one GN objective pass over one patch with K
+    view slots (the reference view and K-1 scored views)."""
+    P2 = score.P2
+    view = (VIEW_GEOM_FLOPS + P2 * (SAMPLE_FLOPS + NORMALIZE_FLOPS)
+            + P2 * 3 * 2)                                  # NCC dot
+    if grad:
+        view += (80 + P2 * 3 * 6                           # partials
+                 + 3 * P2 * 3 * (4 + 4 + 6 + 4))           # tangents, ddot
+    return PATCH_GEOM_FLOPS + (200 if grad else 0) + K * view
 
 
 def _err(a, b) -> float:
@@ -113,17 +172,28 @@ def check_kernels(ctx, opt, center, normal, scale, views, reps: int = 10):
     k = fetch.fetch_windows(**b1)
     p = fetch.fetch_windows_twin(**b1)
     e = _err(k, p)
+    W = b1["W"]
+    live = b1["mask"]
+    ar = torch.arange(W, device=k.device)
+    ri = (b1["rows"].long()[:, None] + ar)[:, :, None]       # (N, W, 1)
+    cj = (b1["ox"].long()[:, None] + ar)[:, None, :]         # (N, 1, W)
+    tex = b1["tex"]
+    n_live = int(live.sum())
     out.append(KernelResult(
         "fetch", e, time_ms(lambda: fetch.fetch_windows(**b1), reps),
         time_ms(lambda: fetch.fetch_windows_twin(**b1), reps),
-        torch.equal(k, p), f"N={b1['rows'].numel()} W={b1['W']}, exact"))
+        torch.equal(k, p), f"N={b1['rows'].numel()} ({n_live} live) W={W}, "
+                           f"exact",
+        bytes=2 * n_live * W * W * 3 * F32 + nbytes(b1["rows"], b1["ox"],
+                                                      live),
+        library_ms=time_ms(lambda: tex[ri, cj], reps)))
 
     kt, kc = score.sample_windows(b2["geom"], b2["win"], True)
     pt, pc = score.sample_windows_twin(b2["geom"], b2["win"], True)
+    B, K = b2["geom"].shape[:2]
     e = _err(kt, pt)
     # the colour is a raw 0..255 pixel value: relative tolerance
     ec = float(((kc - pc).abs() / pc.abs().clamp(min=1.0)).max())
-    B, K = b2["geom"].shape[:2]
     out.append(KernelResult(
         "score", e,
         time_ms(lambda: score.sample_windows(b2["geom"], b2["win"], True),
@@ -132,32 +202,93 @@ def check_kernels(ctx, opt, center, normal, scale, views, reps: int = 10):
                                                   True), reps),
         e <= 2e-5 and ec <= 2e-5,
         f"B={B} K={K}: texture err {e:.3g} (tol 2e-5), colour relative "
-        f"err {ec:.3g} (tol 2e-5)"))
+        f"err {ec:.3g} (tol 2e-5)",
+        bytes=nbytes(b2["geom"], b2["win"], kt, kc),
+        flops=B * K * (score.P2 * (SAMPLE_FLOPS + NORMALIZE_FLOPS)
+                       + SAMPLE_FLOPS)))
 
     k = score.permute_windows(**b3)
     p = score.permute_windows_twin(**b3)
+    wv = b3["win"].reshape(B, K, -1)
+    oi = b3["order"].long()[:, :, None].expand(wv.shape)
     out.append(KernelResult(
         "permute", _err(k, p), time_ms(lambda: score.permute_windows(**b3),
                                        reps),
         time_ms(lambda: score.permute_windows_twin(**b3), reps),
-        torch.equal(k, p), f"B={B} K={K}, exact"))
+        torch.equal(k, p), f"B={B} K={K}, exact",
+        bytes=nbytes(b3["win"], b3["order"], k),
+        library_ms=time_ms(lambda: torch.gather(wv, 1, oi), reps)))
 
-    st0 = dataclasses.replace(st, iters_exact=0)
+    exact = dataclasses.replace(st, exact_j=True)
+    fd = dataclasses.replace(st, exact_j=False)
+    out.append(_check_gn("gn", exact, dataclasses.replace(exact, iters_exact=0),
+                         args, reps))
+    out.append(_check_gn("gn_fd", fd, dataclasses.replace(fd, iters=0), args,
+                         reps))
+    out.append(_check_debug_j(st, args))
+    return out
+
+
+def _gn_bytes(st, args, *outs) -> int:
+    """Inputs of the GN kernel read once (only the first K window slots are
+    read) and its outputs written once."""
+    win = args["win"]
+    B = win.shape[0]
+    rest = nbytes(*(v for k, v in args.items() if k != "win"))
+    return rest + B * st.K * st.W * st.W * 3 * F32 + nbytes(*outs)
+
+
+def _check_gn(name, st, st0, args, reps):
+    """Kernel vs twin for one refinement mode: the value pass at x0 (st0,
+    no iterations), then the full loop (st)."""
     kx0, kf0 = gn.gn_refine(st0, **args)
     px0, pf0 = gn.gn_refine_twin(st0, **args)
     e0 = _err(kf0, pf0)
     kx, kf = gn.gn_refine(st, **args)
-    px, pf = gn.gn_refine_twin(st, **args)
+    passes = {}
+    px, pf = gn.gn_refine_twin(st, **args, passes=passes)
     dc = (kx[:, 0] - px[:, 0]).abs()
     df = (kf - pf).abs()
     frac = float(((dc <= 2e-3) & (df <= 5e-3)).float().mean())
+    # the twin's own sensitivity: the same loop from x0 moved by 1e-6
+    gen = torch.Generator(device=args["x0"].device).manual_seed(0)
+    noise = 1e-6 * torch.randn(args["x0"].shape, generator=gen,
+                               device=args["x0"].device)
+    qx, qf = gn.gn_refine_twin(st, **{**args, "x0": args["x0"] + noise})
+    self_frac = float((((qx[:, 0] - px[:, 0]).abs() <= 2e-3)
+                       & ((qf - pf).abs() <= 5e-3)).float().mean())
     ok = (e0 <= 1e-5 and torch.equal(kx0, px0) and frac >= 0.95
           and bool(torch.isfinite(kx).all()))
-    out.append(KernelResult(
-        "gn", float(df.max()), time_ms(lambda: gn.gn_refine(st, **args),
-                                       reps),
+    K = st.K
+    flops = gn.NB * (passes.get("value", 0) * flops_per_pass(K, False)
+                          + passes.get("grad", 0) * flops_per_pass(K, True))
+    return KernelResult(
+        name, float(df.max()), time_ms(lambda: gn.gn_refine(st, **args), reps),
         time_ms(lambda: gn.gn_refine_twin(st, **args), reps),
-        ok, f"B={kx.shape[0]} K={st.K}: f at x0 err {e0:.3g} (tol 1e-5); "
-            f"{frac:.4f} of patches within centre 2e-3 / f 5e-3 "
-            f"(need 0.95); max centre err {float(dc.max()):.3g}"))
-    return out
+        ok, f"B={kx.shape[0]} K={K}: f at x0 err {e0:.3g} (tol 1e-5); "
+            f"{frac:.4f} of patches within centre 2e-3 / f 5e-3 (need 0.95; "
+            f"the twin against itself from x0 + 1e-6 noise: "
+            f"{self_frac:.4f}); max centre err {float(dc.max()):.3g}; "
+            f"block passes {passes}",
+        bytes=_gn_bytes(st, args, kx, kf), flops=flops)
+
+
+def _check_debug_j(st, args):
+    """debug_j: rho and the analytic J at x0, kernel vs twin."""
+    sd = dataclasses.replace(st, debug_j=True)
+    kx, kf, kJ, krho = gn.gn_refine(sd, **args)
+    px, pf, pJ, prho = gn.gn_refine_twin(sd, **args)
+    er, ef = _err(krho, prho), _err(kf, pf)
+    eJ = float(((kJ - pJ).abs() - 1e-4 * pJ.abs()).max())
+    ok = (er <= 1e-5 and ef <= 1e-5 and eJ <= 1e-4
+          and torch.equal(kx, args["x0"]))
+    B = kx.shape[0]
+    return KernelResult(
+        "gn_debug_j", max(er, _err(kJ, pJ)),
+        time_ms(lambda: gn.gn_refine(sd, **args), 3),
+        time_ms(lambda: gn.gn_refine_twin(sd, **args), 3), ok,
+        f"B={B} K={st.K}: rho err {er:.3g} (tol 1e-5), f err {ef:.3g} "
+        f"(tol 1e-5), J err beyond 1e-4 |J|: {eJ:.3g} (tol 1e-4), max |J| "
+        f"{float(pJ.abs().max()):.3g}",
+        bytes=_gn_bytes(st, args, kx, kf, kJ, krho),
+        flops=B * flops_per_pass(st.K, True))

@@ -1,7 +1,12 @@
 """Build, load and count the hand-written CUDA kernels (csrc/*.cu).
 
 The kernels are compiled at first use with nvcc for sm_90a into one shared
-library with a plain C interface under <repo>/build/, and bound with ctypes.
+library with a plain C interface under <repo>/build/, and bound with ctypes:
+one nvcc per source, all started together, then one link. gn.cu compiles
+without fused multiply-add contraction (SOURCE_FLAGS): its kernel then
+rounds every operation as its plain PyTorch twin does, which the FD/Broyden
+mode needs to be comparable at all (its trajectories are chaotic: a 1e-7
+change of rho moves a few percent of them within four rounds).
 Nothing is compiled at import time: the CPU tests import every module, and a
 CPU tensor never reaches a kernel (each wrapper runs its plain PyTorch twin
 for CPU tensors instead).
@@ -25,6 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+SOURCE_FLAGS = {"gn.cu": ["-fmad=false"]}
 
 
 @dataclasses.dataclass
@@ -36,7 +42,8 @@ class KernelStats:
 
 # one entry per kernel wrapper (name -> counts); chip_smoke.py and the CUDA
 # tests reset and read them to show which path a run took
-STATS = {name: KernelStats() for name in ("fetch", "score", "permute", "gn")}
+STATS = {name: KernelStats()
+         for name in ("fetch", "score", "permute", "gn", "gn_fd")}
 
 
 def reset_counts() -> None:
@@ -66,27 +73,50 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into build/libhpmvs_kernels-<hash>.so (skipped when
-    a library built from the same sources exists). verbose adds ptxas
-    register/spill reports to _Lib.build_log."""
+    a library built from the same sources and flags exists). verbose adds
+    ptxas register/spill reports to _Lib.build_log."""
     digest = hashlib.sha1()
     for p in _sources():
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
-    digest.update(" ".join(ARCH_FLAGS).encode())
+    digest.update(repr((ARCH_FLAGS, SOURCE_FLAGS)).encode())
     out = BUILD / f"libhpmvs_kernels-{digest.hexdigest()[:12]}.so"
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{digest.hexdigest()[:12]}.{os.getpid()}"
+    procs, objs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD / f"{src.stem}-{tag}.o"
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               *SOURCE_FLAGS.get(src.name, []), "-c", "-o", str(obj),
+               str(src)]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs.append((src.name, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+        objs.append(obj)
+    logs, failed = [], []
+    for name, proc in procs:
+        text, _ = proc.communicate()
+        logs.append(f"== {name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    _Lib.build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+    if not failed:
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        logs.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    _Lib.build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
                            f"{_Lib.build_log}")
     os.replace(tmp, out)
     return out
@@ -98,7 +128,8 @@ def lib() -> ctypes.CDLL:
         path = build()
         handle = ctypes.CDLL(str(path))
         for name in ("hpmvs_fetch_windows", "hpmvs_sample_views",
-                     "hpmvs_permute_windows", "hpmvs_gn_refine"):
+                     "hpmvs_permute_windows", "hpmvs_gn_refine",
+                     "hpmvs_gn_refine_fd", "hpmvs_gn_debug_j"):
             getattr(handle, name).restype = ctypes.c_int
         _Lib.handle, _Lib.path = handle, path
     return _Lib.handle

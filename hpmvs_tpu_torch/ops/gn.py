@@ -1,7 +1,10 @@
-"""Kernel B4: the batched Gauss-Newton (Levenberg) patch refinement.
+"""Kernels B4/B5: the batched Gauss-Newton (Levenberg) patch refinement.
 
-Replaces hpmvs_tpu/ops/pallas_gn.py in its exact-Jacobian mode
-(LM_EXACT_J=True, the default): the per-patch optimization of the reference
+Replaces hpmvs_tpu/ops/pallas_gn.py in all three of its modes: the
+exact-Jacobian loop (LM_EXACT_J=True, the default; kernel "gn"), the
+finite-difference/Broyden loop (LM_EXACT_J=False; kernel "gn_fd") and the
+debug_j output (rho and the analytic J at x0, for checks). It is the
+per-patch optimization of the reference
 (PatchOptimizer::optimizePatch + objective_fn,
 src/hpmvs/PatchOptimizer.cpp:286-382) over x = (depth along the reference
 ray, two normal angles x pi/48). `_prep` packs the per-patch terms with
@@ -13,8 +16,9 @@ over its 128-lane block, so the batch is always padded to a multiple of 128.
 The objective evaluates the first min(K, MAX_IMAGES_PER_PATCH) view slots
 (the cap the reference computes at PatchOptimizer.cpp:298).
 
-Not ported yet: the FD/Broyden mode (LM_EXACT_J=False) and the debug_j
-output of the TPU kernel.
+The FD mode is the TPU kernel's algorithm, not the plain refiner's
+(ops/optimizer._optimize_patch, FD branch): it shrinks the FD step every
+round and stops a block early.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch
 from hpmvs_tpu_torch import kernels
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.ops import sampling
-from hpmvs_tpu_torch.ops.score import bilinear_taps, normalize_patch, sampling_grid
+from hpmvs_tpu_torch.ops.score import (bilinear_taps, div, normalize_patch,
+                                       sampling_grid, seq_sum)
 from hpmvs_tpu_torch.ops.windows import WinState
 
 NB = 128          # patches per early-stop block
@@ -42,14 +47,19 @@ GN_EPS = 1e-5
 class GNStatics:
     W: int
     K: int
-    iters_exact: int
+    iters: int          # FD mode: iterations (rounds = ceil(iters / inner))
+    inner: int          # FD mode: Broyden trials per Jacobian refresh
     angle_scale: float
     cos_max: float
     min_images: int
     angle_bound: float
     lam0: float
     ftol: float
+    h_shrink: float     # FD mode: FD step decay per round
+    exact_j: bool
+    iters_exact: int
     step_clamp: float
+    debug_j: bool = False
 
 
 def _prep(ctx, opt: Options, center, normal, scale, views, ws: WinState):
@@ -95,19 +105,25 @@ def _prep(ctx, opt: Options, center, normal, scale, views, ws: WinState):
                 p9=Pl3.reshape(B, K, 9), camc=camc, lim=lim, org=org,
                 mask=mask, win=ws.win)
     args = {k: v.contiguous() for k, v in args.items()}
-    st = GNStatics(W=ws.W, K=K, iters_exact=int(opt.LM_ITERS_EXACT),
+    st = GNStatics(W=ws.W, K=K, iters=int(opt.LM_ITERS),
+                   inner=max(1, int(opt.LM_INNER)),
                    angle_scale=float(opt.ANGLE_SCALE),
                    cos_max=float(math.cos(opt.MAX_ANGLE)),
                    min_images=int(opt.MIN_IMAGES_PER_PATCH),
                    angle_bound=float(opt.ANGLE_BOUND),
                    lam0=float(opt.LM_LAMBDA0), ftol=float(opt.LM_FTOL),
+                   h_shrink=float(opt.LM_H_SHRINK),
+                   exact_j=bool(opt.LM_EXACT_J),
+                   iters_exact=int(opt.LM_ITERS_EXACT),
                    step_clamp=float(opt.LM_STEP_CLAMP))
     return st, args, (ref_center, ref_ray, ax_x, ax_y, ax_z)
 
 
 def gn_refine(st: GNStatics, x0, h, ref, scale, pc, pr, p9, camc, lim, org,
               mask, win):
-    """Kernel B4 on prepped inputs (B % 128 == 0). Returns (x (B,3), f (B,)).
+    """The GN kernel in the mode st selects, on prepped inputs (B % 128 ==
+    0). Returns (x (B,3), f (B,)); with st.debug_j (x0, f at x0, J (B,3,K),
+    rho (B,K)) instead.
 
     win may hold more view slots than st.K; only the first st.K are read."""
     if not x0.is_cuda:
@@ -131,16 +147,31 @@ def gn_refine(st: GNStatics, x0, h, ref, scale, pc, pr, p9, camc, lim, org,
     x = torch.empty((B, 3), dtype=f32, device=x0.device)
     f = torch.empty((B,), dtype=f32, device=x0.device)
     p = kernels.ptr
-    cf = ctypes.c_float
-    kernels.launch("hpmvs_gn_refine", p(x0), p(h), p(ref), p(scale), p(pc),
-                   p(pr), p(p9), p(camc), p(lim), p(org), p(mask), p(win),
-                   p(x), p(f), ctypes.c_int(B), ctypes.c_int(K),
-                   ctypes.c_int(Kw), ctypes.c_int(st.W),
-                   ctypes.c_int(st.iters_exact), cf(st.angle_scale),
-                   cf(st.cos_max), cf(float(st.min_images)),
-                   cf(st.angle_bound), cf(st.lam0), cf(st.ftol),
-                   cf(st.step_clamp))
-    kernels.STATS["gn"].launches += 1
+    ci, cf = ctypes.c_int, ctypes.c_float
+    ins = (p(x0), p(h), p(ref), p(scale), p(pc), p(pr), p(p9), p(camc),
+           p(lim), p(org), p(mask), p(win), p(x), p(f))
+    if st.debug_j:
+        J = torch.empty((B, 3, K), dtype=f32, device=x0.device)
+        rho = torch.empty((B, K), dtype=f32, device=x0.device)
+        kernels.launch("hpmvs_gn_debug_j", *ins, p(J), p(rho), ci(B), ci(K),
+                       ci(Kw), ci(st.W), cf(st.angle_scale), cf(st.cos_max),
+                       cf(float(st.min_images)))
+        kernels.STATS["gn"].launches += 1
+        return x, f, J, rho
+    if st.exact_j:
+        kernels.launch("hpmvs_gn_refine", *ins, ci(B), ci(K), ci(Kw),
+                       ci(st.W), ci(st.iters_exact), cf(st.angle_scale),
+                       cf(st.cos_max), cf(float(st.min_images)),
+                       cf(st.angle_bound), cf(st.lam0), cf(st.ftol),
+                       cf(st.step_clamp))
+        kernels.STATS["gn"].launches += 1
+    else:
+        kernels.launch("hpmvs_gn_refine_fd", *ins, ci(B), ci(K), ci(Kw),
+                       ci(st.W), ci(st.iters), ci(st.inner),
+                       cf(st.angle_scale), cf(st.cos_max),
+                       cf(float(st.min_images)), cf(st.angle_bound),
+                       cf(st.lam0), cf(st.ftol), cf(st.h_shrink))
+        kernels.STATS["gn_fd"].launches += 1
     return x, f
 
 
@@ -248,8 +279,8 @@ def _objective(st: GNStatics, a, x, grad: bool):
         tex = bilinear_taps(win, gx, gy)
     cen, inv = normalize_patch(tex)                   # (B,K,49,3), (B,K,1,1)
     cenr = cen[:, :1]
-    dot = torch.sum(torch.sum(cenr * cen, dim=-2), dim=-1)      # (B, K)
-    incc = 1.0 - dot / (P2 * 3.0)
+    dot = seq_sum(seq_sum(cenr * cen, -2), -1)                  # (B, K)
+    incc = 1.0 - div(dot, P2 * 3.0)
     others = valid.clone()
     others[:, 0] = False
     rho = torch.where(others, incc / (1.0 + 3.0 * incc), torch.zeros_like(incc))
@@ -280,19 +311,18 @@ def _objective(st: GNStatics, a, x, grad: bool):
         dgx = dtlx + IX * ddxx[q][..., None] + IY * ddyx[q][..., None]
         dgy = dtly + IX * ddxy[q][..., None] + IY * ddyy[q][..., None]
         dtex = Gx * dgx[..., None] + Gy * dgy[..., None]          # (B,K,49,3)
-        dm = torch.sum(dtex, dim=-2, keepdim=True) / P2
-        ds = torch.sum(torch.sum(cen * dtex, dim=-2, keepdim=True), dim=-1,
-                       keepdim=True) / (P2 * 3.0)
+        dm = div(seq_sum(dtex, -2), P2)[..., None, :]
+        ds = div(seq_sum(seq_sum(cen * dtex, -2), -1), P2 * 3.0)
+        ds = ds[..., None, None]
         dcen = (dtex - dm) * inv - cen * (ds * inv)
-        ddot = torch.sum(torch.sum(dcen[:, :1] * cen + cenr * dcen, dim=-2),
-                         dim=-1)
-        J.append(torch.where(others, -ddot / (P2 * 3.0) * dr,
+        ddot = seq_sum(seq_sum(dcen[:, :1] * cen + cenr * dcen, -2), -1)
+        J.append(torch.where(others, div(-ddot, P2 * 3.0) * dr,
                              torch.zeros_like(ddot)))
     return rho, n, ref_ok, torch.stack(J, dim=1)
 
 
 def _mean_or_2(st: GNStatics, rho, n, ref_ok):
-    mean = torch.sum(rho, dim=-1) / torch.clamp(n, min=1.0)
+    mean = seq_sum(rho, -1) / torch.clamp(n, min=1.0)
     good = (ref_ok > 0.0) & (n >= st.min_images - 1)
     return torch.where(good, mean, torch.full_like(mean, 2.0))
 
@@ -300,12 +330,12 @@ def _mean_or_2(st: GNStatics, rho, n, ref_ok):
 def _newton_step(J, rho, n, lam):
     """Damped GN step (pallas_gn.py:435-464): J (B,3,K), rho (B,K)."""
     nf = torch.clamp(n, min=1.0)
-    wgt = 0.5 / (rho + GN_EPS)
-    g = [torch.sum(J[:, i], dim=-1) / nf for i in range(3)]
+    wgt = torch.full_like(rho, 0.5) / (rho + GN_EPS)
+    g = [seq_sum(J[:, i], -1) / nf for i in range(3)]
     H = {}
     for i in range(3):
         for j in range(i, 3):
-            H[(i, j)] = torch.sum(J[:, i] * wgt * J[:, j], dim=-1) / nf
+            H[(i, j)] = seq_sum(J[:, i] * wgt * J[:, j], -1) / nf
     d = 1e-6
     h00 = H[(0, 0)] + lam * torch.clamp(torch.abs(H[(0, 0)]), min=d)
     h11 = H[(1, 1)] + lam * torch.clamp(torch.abs(H[(1, 1)]), min=d)
@@ -327,23 +357,46 @@ def _newton_step(J, rho, n, lam):
 
 
 def gn_refine_twin(st: GNStatics, x0, h, ref, scale, pc, pr, p9, camc, lim,
-                   org, mask, win):
-    """Plain PyTorch version of the GN kernel (same contract). Each 128-patch
-    block runs its own loop: a block that stopped keeps its state while the
-    others iterate on."""
-    kernels.STATS["gn"].twin_calls += 1
+                   org, mask, win, passes: dict = None):
+    """Plain PyTorch version of the GN kernel (same contract, every mode).
+    Each 128-patch block runs its own loop: a block that stopped keeps its
+    state while the others iterate on. passes: optional dict that receives
+    the number of 128-patch block passes the kernel would run ("value",
+    "grad"), the work this run's data needs."""
+    kernels.STATS["gn" if st.exact_j or st.debug_j else "gn_fd"
+                  ].twin_calls += 1
     B = x0.shape[0]
     if B % NB:
         raise ValueError(f"gn_refine: B={B} is not a multiple of {NB}")
     a = dict(ref=ref, scale=scale, pc=pc, pr=pr, p9=p9, camc=camc, lim=lim,
              org=org, mask=mask, win=win)
+    passes = {} if passes is None else passes
+
+    def tally(kind, n):
+        passes[kind] = passes.get(kind, 0) + int(n)
+
+    if st.debug_j:
+        tally("grad", B // NB)
+        rho, n, ref_ok, J = _objective(st, a, x0, True)
+        return x0, _mean_or_2(st, rho, n, ref_ok), J, rho
     b = st.angle_bound
     lo = x0.new_tensor([-BIG, -b, -b])
     hi = x0.new_tensor([BIG, b, b])
+    refine = _refine_exact if st.exact_j else _refine_fd
+    return refine(st, a, x0, h, lo, hi, tally)
+
+
+def _clip(v, lo, hi):
+    return torch.minimum(torch.maximum(v, lo), hi)
+
+
+def _refine_exact(st: GNStatics, a, x0, h, lo, hi, tally):
+    """The exact-Jacobian loop (pallas_gn.py:475-522)."""
+    B = x0.shape[0]
     cl = h * st.step_clamp
     nblk = B // NB
-
     x = x0
+    tally("grad", nblk)
     rho, n, ref_ok, J = _objective(st, a, x, True)
     f = _mean_or_2(st, rho, n, ref_ok)
     lam = torch.full_like(f, st.lam0)
@@ -353,8 +406,9 @@ def gn_refine_twin(st: GNStatics, x0, h, ref, scale, pc, pr, p9, camc, lim,
         if not bool(run_blk.any()):
             break
         run = run_blk.repeat_interleave(NB)
-        step = torch.minimum(torch.maximum(_newton_step(J, rho, n, lam), -cl), cl)
-        xt = torch.minimum(torch.maximum(x + step, lo), hi)
+        tally("grad", run_blk.sum())
+        step = _clip(_newton_step(J, rho, n, lam), -cl, cl)
+        xt = _clip(x + step, lo, hi)
         rho_t, n_t, ref_t, J_t = _objective(st, a, xt, True)
         f_t = _mean_or_2(st, rho_t, n_t, ref_t)
         acc = f_t < f
@@ -373,13 +427,70 @@ def gn_refine_twin(st: GNStatics, x0, h, ref, scale, pc, pr, p9, camc, lim,
                                                torch.zeros_like(dry), dry + 1),
                           dry)
     if st.iters_exact > 0:
-        step = torch.minimum(torch.maximum(_newton_step(J, rho, n, lam), -cl), cl)
-        xt = torch.minimum(torch.maximum(x + step, lo), hi)
+        tally("value", nblk)
+        step = _clip(_newton_step(J, rho, n, lam), -cl, cl)
+        xt = _clip(x + step, lo, hi)
         rho_t, n_t, ref_t, _ = _objective(st, a, xt, False)
         f_t = _mean_or_2(st, rho_t, n_t, ref_t)
         acc = f_t < f
         x = torch.where(acc[:, None], xt, x)
         f = torch.where(acc, f_t, f)
+    return x, f
+
+
+def _refine_fd(st: GNStatics, a, x0, h, lo, hi, tally):
+    """The FD/Broyden loop (pallas_gn.py:524-595): value passes only. Each
+    round refreshes J by forward differences at x + e_i h_i hs, runs
+    st.inner unclamped trials with a Broyden update after each (accepted or
+    not), then shrinks hs; a block stops after the first round in which no
+    patch's f fell by more than ftol."""
+    B = x0.shape[0]
+    nblk = B // NB
+    x = x0
+    tally("value", nblk)
+    rho, n, ref_ok, _ = _objective(st, a, x, False)
+    f = _mean_or_2(st, rho, n, ref_ok)
+    lam = torch.full_like(f, st.lam0)
+    hs = torch.ones((), dtype=x.dtype, device=x.device)
+    shrink = torch.tensor(st.h_shrink, dtype=x.dtype, device=x.device)
+    go = torch.ones(nblk, dtype=torch.bool, device=x.device)
+    for _ in range(-(-st.iters // st.inner)):
+        if not bool(go.any()):
+            break
+        run = go.repeat_interleave(NB)
+        tally("value", (3 + st.inner) * go.sum())
+        f_before = f
+        hr = h * hs
+        cols = []
+        for q in range(3):
+            xp = x.clone()
+            xp[:, q] = x[:, q] + hr[:, q]
+            rho_q = _objective(st, a, xp, False)[0]
+            cols.append((rho_q - rho) / hr[:, q:q + 1])
+        J = torch.stack(cols, dim=1)                         # (B, 3, K)
+        for _ in range(st.inner):
+            xn = _clip(x + _newton_step(J, rho, n, lam), lo, hi)
+            rho_t, n_t, ref_t, _ = _objective(st, a, xn, False)
+            dx = xn - x
+            dd = dx[:, 0] * dx[:, 0] + dx[:, 1] * dx[:, 1] + dx[:, 2] * dx[:, 2]
+            pred = (J[:, 0] * dx[:, 0:1] + J[:, 1] * dx[:, 1:2]
+                    + J[:, 2] * dx[:, 2:3])
+            resb = (rho_t - rho - pred) / torch.clamp(dd, min=1e-20)[:, None]
+            J = torch.where((dd > 1e-20)[:, None, None],
+                            J + dx[:, :, None] * resb[:, None, :], J)
+            f_t = _mean_or_2(st, rho_t, n_t, ref_t)
+            acc = f_t < f
+            upd = acc & run
+            x = torch.where(upd[:, None], xn, x)
+            rho = torch.where(upd[:, None], rho_t, rho)
+            n = torch.where(upd, n_t, n)
+            ref_ok = torch.where(upd, ref_t, ref_ok)
+            f = torch.where(upd, f_t, f)
+            lam_new = torch.clamp(torch.where(acc, lam * 0.5, lam * 4.0),
+                                  1e-7, 1e7)
+            lam = torch.where(run, lam_new, lam)
+        go = go & ((f_before - f).reshape(nblk, NB).amax(dim=1) > st.ftol)
+        hs = hs * shrink
     return x, f
 
 

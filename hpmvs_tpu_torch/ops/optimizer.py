@@ -9,15 +9,24 @@ Behavioral equivalent of the reference per-patch pipeline
     filterImagesNCC(a2) -> getColor
 
 Instead of one nlopt BOBYQA solve per patch, thousands of patches are refined
-together by the exact-Jacobian Levenberg kernel (ops/gn.py) over the same
-3-parameter space -- depth along the reference ray + two normal angles at
-angleScale = pi/48 (PatchOptimizer.cpp:384-446). View lists are fixed-size
-slot arrays (MAX_VIEWS) with -1 padding; every filter stage is a masked
-compaction, every selection loop a fixed-trip loop over slots.
+together by a Levenberg loop over the same 3-parameter space -- depth along
+the reference ray + two normal angles at angleScale = pi/48
+(PatchOptimizer.cpp:384-446). View lists are fixed-size slot arrays
+(MAX_VIEWS) with -1 padding; every filter stage is a masked compaction,
+every selection loop a fixed-trip loop over slots.
 
-This is the batched path of hpmvs_tpu/ops/optimizer.py (USE_BATCHED_STAGES,
-FAST_SETREF, USE_WINDOWS, LM_EXACT_J); its per-patch vmapped path and XLA
-refiner are not ported.
+Both stage pipelines of hpmvs_tpu/ops/optimizer.py are here, each written
+over a leading batch axis:
+  - the batched stages (USE_BATCHED_STAGES and USE_WINDOWS and FAST_SETREF):
+    one texture-sampling pass per stage through kernel B2, one window
+    permute (B3), the fused post stage;
+  - the per-patch stages (otherwise), with the single-patch semantics of the
+    JAX package's vmapped functions: every stage resamples, windows are
+    permuted by indexing, and FAST_SETREF=False runs the reference's
+    setRefImage (K sampling passes of K views, PatchOptimizer.cpp:154-181).
+Either refines with the GN kernel (ops/gn.py: exact-J, or FD/Broyden with
+LM_EXACT_J=False) when USE_PALLAS_GN and USE_WINDOWS are on, and with the
+plain refiner `_optimize_patch` otherwise.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from hpmvs_tpu_torch.ops import windows as win_ops
 
 INVALID = -1
 BIG = 1e9
+GN_EPS = 1e-5
 
 
 @dataclasses.dataclass
@@ -50,25 +60,212 @@ def _nviews(views):
 
 
 def _compact(values, valid):
-    """Stable compaction: keep `valid` slots in order, pad with -1."""
-    k = values.shape[-1]
+    """Stable compaction: keep `valid` slots in order, pad with -1. Returns
+    (the compacted values, the slot order that realizes it)."""
     order = torch.argsort((~valid).to(torch.int8), dim=-1, stable=True)
-    vals = torch.gather(values, -1, order)
     count = torch.sum(valid, dim=-1)
-    idx = torch.arange(k, device=values.device)
-    return torch.where(idx < count[..., None], vals,
-                       torch.full_like(vals, INVALID))
+    idx = torch.arange(values.shape[-1], device=values.device)
+    return torch.where(idx < count[..., None], torch.gather(values, -1, order),
+                       torch.full_like(values, INVALID)), order
 
 
-def _check_supported(opt: Options) -> None:
-    missing = [name for name, on in (
-        ("USE_WINDOWS=False", not opt.USE_WINDOWS),
-        ("USE_BATCHED_STAGES=False", not opt.USE_BATCHED_STAGES),
-        ("FAST_SETREF=False", not opt.FAST_SETREF),
-        ("LM_EXACT_J=False", not opt.LM_EXACT_J)) if on]
-    if missing:
-        raise NotImplementedError(
-            "not yet ported to hpmvs_tpu_torch: " + ", ".join(missing))
+def _permute_ws(ws, order):
+    """Reorder the per-slot window cache alongside a view-slot permutation
+    (B, K), by indexing (the per-patch stages; the batched ones use B3)."""
+    if ws is None:
+        return None
+    o = order.long()
+    rows = torch.arange(o.shape[0], device=o.device)[:, None]
+    return win_ops.WinState(win=ws.win[rows, o], ox=torch.gather(ws.ox, 1, o),
+                            oy=torch.gather(ws.oy, 1, o),
+                            level=torch.gather(ws.level, 1, o))
+
+
+# ---------------------------------------------------------------------------
+# Per-patch stages: the JAX package's single-patch functions (vmapped there)
+# written over a leading batch axis, with the same semantics. Stages that
+# are the same computation in both pipelines (addImages, the sortImages
+# ordering, assureImageAngles) are shared with the batched pipeline below.
+# ---------------------------------------------------------------------------
+
+def _sample_views(ctx, opt: Options, views, center, scale, xax, yax, zax,
+                  ws=None):
+    """The 7x7 texture in every view slot (B, K). Returns (tex (B,K,49,3),
+    valid (B,K)). With a window cache, samples from the cached windows
+    instead of the full images."""
+    ci = torch.clamp(views, min=0).long()
+    shp = ci.shape
+    args = (ci, center[:, None].expand(shp + (3,)), scale[:, None].expand(shp),
+            xax[:, None].expand(shp + (3,)), yax[:, None].expand(shp + (3,)),
+            zax[:, None].expand(shp + (3,)), sampling.cos32(opt.MAX_ANGLE),
+            opt.MAXLEVEL - 1)
+    if ws is None:
+        tex, valid = sampling.sample_texture(ctx.cams, ctx.imgs, *args)
+    else:
+        tex, valid = win_ops.sample_from_windows(ctx.cams, ctx.imgs, ws, *args)
+    return tex, valid & (views >= 0)
+
+
+def _set_inccs(ctx, opt: Options, views, center, normal, scale, ref_slot: int,
+               robust: bool, ws=None):
+    """PatchOptimizer::setINCCs (PatchOptimizer.cpp:448-474): per-slot
+    1 - NCC against the texture of slot `ref_slot` (0 for that slot, 2 for
+    failed samples)."""
+    ref_ci = torch.clamp(views[:, ref_slot], min=0)
+    xax, yax, _ = sampling.patch_axes(ctx.cams, ref_ci, normal, scale)
+    # the reference passes pNormal_ as the sampling z-axis here
+    nz = sampling.normalize3(normal)
+    tex, valid = _sample_views(ctx, opt, views, center, scale, xax, yax, nz,
+                               ws)
+    ref_ok = valid[:, ref_slot]
+    vals = 1.0 - sampling.ncc(tex[:, ref_slot:ref_slot + 1], tex)
+    if robust:
+        vals = sampling.robust_incc(vals)
+    vals = torch.where(valid & ref_ok[:, None], vals,
+                       torch.full_like(vals, 2.0))
+    slot = torch.arange(views.shape[1], device=views.device)
+    return torch.where(slot == ref_slot, torch.where(ref_ok, 0.0, 2.0)[:, None],
+                       vals)
+
+
+def _filter_ncc(ctx, opt: Options, center, normal, scale, views, alpha,
+                ws=None):
+    """PatchOptimizer::filterImagesNCC (PatchOptimizer.cpp:138-152)."""
+    inccs = _set_inccs(ctx, opt, views, center, normal, scale, 0,
+                       robust=False, ws=ws)
+    keep = (views >= 0) & (inccs < 1.0 - alpha)
+    keep[:, 0] = views[:, 0] >= 0  # always keep the reference
+    views, order = _compact(views, keep)
+    ok = _nviews(views) >= opt.MIN_IMAGES_PER_PATCH
+    return views, ok, _permute_ws(ws, order)
+
+
+def _sort_images(ctx, opt: Options, center, normal, scale, views, ws=None):
+    """PatchOptimizer::sortImages (PatchOptimizer.cpp:183-223), carrying the
+    window cache along."""
+    views, ok, perm = _sort_images_b(ctx, opt, center, normal, scale, views)
+    return views, ok, _permute_ws(ws, perm)
+
+
+def _filter_by_angle(ctx, opt: Options, center, normal, views, ws=None):
+    """PatchOptimizer::filterImagesByAngle (PatchOptimizer.cpp:125-136)."""
+    ci = torch.clamp(views, min=0).long()
+    rays = sampling.normalize3(ctx.cams.center[ci] - center[:, None])
+    keep = (views >= 0) & (torch.sum(rays * normal[:, None], dim=-1)
+                           > sampling.cos32(opt.MAX_ANGLE))
+    views, order = _compact(views, keep)
+    ok = _nviews(views) >= opt.MIN_IMAGES_PER_PATCH
+    return views, ok, _permute_ws(ws, order)
+
+
+def _set_ref_image(ctx, opt: Options, center, normal, scale, views, ws=None):
+    """PatchOptimizer::setRefImage (PatchOptimizer.cpp:154-181): pick the
+    view minimizing the summed robust incc against all others; swap it to
+    slot 0. FAST_SETREF samples once in the slot-0 tangent frame; without
+    it every candidate reference samples all views in its own frame, as the
+    reference does."""
+    B, k = views.shape
+    valid = views >= 0
+    slot = torch.arange(k, device=views.device)
+    if opt.FAST_SETREF:
+        ref_ci = torch.clamp(views[:, 0], min=0)
+        xax, yax, _ = sampling.patch_axes(ctx.cams, ref_ci, normal, scale)
+        nz = sampling.normalize3(normal)
+        tex, vv = _sample_views(ctx, opt, views, center, scale, xax, yax, nz,
+                                ws)
+        nccs = torch.einsum("batc,bdtc->bad", tex, tex) / sampling.N_TEXELS
+        incc = sampling.robust_incc(1.0 - nccs)
+        incc = torch.where(vv[:, :, None] & vv[:, None, :], incc,
+                           torch.full_like(incc, 2.0))
+        eye = slot[:, None] == slot[None, :]
+        diag = torch.where(vv, 0.0, 2.0)[:, :, None].expand(B, k, k)
+        incc = torch.where(eye, diag, incc)
+        sums = torch.sum(torch.where(valid[:, None, :], incc,
+                                     torch.zeros_like(incc)), dim=-1)
+    else:
+        sums = torch.stack([
+            torch.sum(torch.where(valid, _set_inccs(
+                ctx, opt, views, center, normal, scale, r, robust=True,
+                ws=ws), torch.zeros(views.shape, device=views.device)),
+                dim=-1)
+            for r in range(k)], dim=-1)
+    sums = torch.where(valid, sums, torch.full_like(sums, BIG))
+    best = torch.argmin(sums, dim=-1)
+    best = torch.where(_nviews(views) <= 1, torch.zeros_like(best), best)
+    bi = best[:, None]
+    order = torch.where(slot == 0, bi, torch.where(slot == bi,
+                                                   torch.zeros_like(bi), slot))
+    return torch.gather(views, -1, order), _permute_ws(ws, order)
+
+
+def _get_color(ctx, opt: Options, center, scale, views):
+    """Scene::getColor (Scene.cpp:300-327): median-by-norm over views with
+    the white-pixel (sky) special case. Level capped at MAXLEVEL-1 (the
+    window-cache cap) rather than the reference's MAXLEVEL -- the JAX
+    package's documented divergence."""
+    cams, imgs = ctx.cams, ctx.imgs
+    ci = torch.clamp(views, min=0).long()
+    valid = views >= 0
+    cb = center[:, None].expand(ci.shape + (3,))
+    lvl = cam_ops.get_leveli(cams, ci, cb, scale[:, None].expand(ci.shape),
+                             opt.MAXLEVEL - 1).long()
+    uvw = cam_ops.project(cams, ci, cb, lvl)
+    w = imgs.width[ci, lvl].to(uvw.dtype)
+    h = imgs.height[ci, lvl].to(uvw.dtype)
+    gx = torch.minimum(torch.clamp(uvw[..., 0], min=0.0),
+                       torch.clamp(w - 2.0, min=0.0))
+    gy = torch.minimum(torch.clamp(uvw[..., 1], min=0.0),
+                       torch.clamp(h - 2.0, min=0.0))
+    cols = sampling.bilinear(imgs.tex, imgs.row0, imgs.width, ci, lvl, gx,
+                             gy)                               # (B, K, 3)
+    norms = torch.where(valid, torch.linalg.vector_norm(cols, dim=-1),
+                        torch.full_like(cols[..., 0], BIG))
+    order = torch.argsort(norms, dim=-1, stable=True)
+    n = torch.clamp(torch.sum(valid, dim=-1), min=1)
+    pick = torch.gather(order, -1, torch.stack([n // 2, torch.zeros_like(n)],
+                                               -1))
+    med, first = torch.gather(cols, 1, pick[:, :, None].expand(-1, 2, 3)
+                              ).unbind(1)
+    return torch.where(
+        torch.linalg.vector_norm(med, dim=-1, keepdim=True) > 250.0, first,
+        med)
+
+
+def _fetch_ws(ctx, opt: Options, views, center, scale):
+    """Window fetch for the current view slots (once per pipeline half)."""
+    ci = torch.clamp(views, min=0)
+    return win_ops.fetch_windows_t(
+        ctx.cams, ctx.imgs, ci, center[:, None].expand(ci.shape + (3,)),
+        scale[:, None].expand(ci.shape), opt.MAXLEVEL - 1, opt.WINDOW_SIZE)
+
+
+def _run_pre(ctx, opt: Options, center, normal, scale, views):
+    """First half of runOptimization: view growth + filters + sort, up to
+    (and excluding) optimizePatch. Returns (center, normal, views, ok, ws)."""
+    normal = sampling.normalize3(normal)
+    views, ok = _add_images_b(ctx, opt, center, normal, scale, views)
+    ws = _fetch_ws(ctx, opt, views, center, scale) if opt.USE_WINDOWS else None
+    views, ok1, ws = _filter_ncc(ctx, opt, center, normal, scale, views,
+                                 opt.NCC_ALPHA_1, ws)
+    views, ok2, ws = _sort_images(ctx, opt, center, normal, scale, views, ws)
+    ok = ok & ok1 & ok2 & _assure_angles_b(ctx, opt, center, views)
+    return center, normal, views, ok, ws
+
+
+def _run_post(ctx, opt: Options, center, normal, scale, views, ok):
+    """Second half of runOptimization: re-grow views, final filters, ref
+    re-selection, color. Takes the post-refinement (merged) center/normal."""
+    views, ok4 = _add_images_b(ctx, opt, center, normal, scale, views)
+    ws = _fetch_ws(ctx, opt, views, center, scale) if opt.USE_WINDOWS else None
+    views, ok5, ws = _filter_ncc(ctx, opt, center, normal, scale, views,
+                                 opt.NCC_ALPHA_2, ws)
+    views, ok6, ws = _filter_by_angle(ctx, opt, center, normal, views, ws)
+    ok = ok & ok4 & ok5 & ok6 & _assure_angles_b(ctx, opt, center, views)
+    views, ws = _set_ref_image(ctx, opt, center, normal, scale, views, ws)
+    views, ok7, ws = _filter_ncc(ctx, opt, center, normal, scale, views,
+                                 opt.NCC_ALPHA_2, ws)
+    color = _get_color(ctx, opt, center, scale, views)
+    return center, normal, scale, views, ok & ok7, color
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +326,7 @@ def _add_images_b(ctx, opt: Options, center, normal, scale, views):
                          -1)
     ext_valid = torch.cat([views >= 0, accept], -1)
     k = views.shape[1]
-    new_views = _compact(ext_vals, ext_valid)[:, :k]
+    new_views = _compact(ext_vals, ext_valid)[0][:, :k]
     ok = ref_valid & (_nviews(new_views) >= opt.MIN_IMAGES_PER_PATCH)
     return new_views, ok
 
@@ -149,7 +346,6 @@ def _filter_ncc_b(ctx, opt: Options, center, normal, scale, views, alpha,
                   ws):
     """Batched filterImagesNCC (PatchOptimizer.cpp:138-152). Returns the
     compaction order too; callers compose it into one window permute."""
-    k = views.shape[1]
     tex, valid = _sample_views_b(ctx, opt, center, normal, scale, views, ws)
     ref_ok = valid[:, 0]
     nccs = torch.einsum("bkpc,bpc->bk", tex, tex[:, 0]) / sampling.N_TEXELS
@@ -158,12 +354,7 @@ def _filter_ncc_b(ctx, opt: Options, center, normal, scale, views, alpha,
     inccs[:, 0] = torch.where(ref_ok, 0.0, 2.0)
     keep = (views >= 0) & (inccs < 1.0 - alpha)
     keep[:, 0] = views[:, 0] >= 0  # always keep the reference
-    order = torch.argsort((~keep).to(torch.int8), dim=-1, stable=True)
-    count = torch.sum(keep, dim=-1)
-    slot = torch.arange(k, device=views.device)
-    new_views = torch.where(slot < count[:, None],
-                            torch.gather(views, -1, order),
-                            torch.full_like(views, INVALID))
+    new_views, order = _compact(views, keep)
     ok = _nviews(new_views) >= opt.MIN_IMAGES_PER_PATCH
     return new_views, ok, order
 
@@ -338,8 +529,8 @@ def _run_post_b(ctx, opt: Options, center, normal, scale, views, ok,
     order = torch.where(slot == 0, bi, torch.where(slot == bi,
                                                    torch.zeros_like(slot),
                                                    slot))
-    views = _compact(torch.gather(views, -1, order),
-                     torch.gather(keep2, -1, order))
+    views, _ = _compact(torch.gather(views, -1, order),
+                        torch.gather(keep2, -1, order))
     # Scene::getColor (Scene.cpp:300-327): median-by-norm over the kept views
     # using the center RGB the sampling pass already produced.
     # White-pixel (sky) case: |median| > 250 -> darkest view instead.
@@ -381,19 +572,300 @@ def _params_from_center_norm(center, normal, ref_center, ref_ray,
                         torch.clamp(x2 / opt.ANGLE_SCALE, -b, b)], dim=-1)
 
 
-def _optimize_all(ctx, opt: Options, center, normal, scale, views):
-    """Batched runOptimization over B patches: the stage pipeline around the
-    GN kernel (which pads to its 128-patch block itself, on every device).
-    Returns (center, normal, scale, views, ok, color, resid)."""
-    _check_supported(opt)
-    center, normal, views, ok, ws = _run_pre_b(ctx, opt, center, normal,
-                                               scale, views)
-    new_center, new_normal, ok3, resid = gn.gn_refine_batch(
-        ctx, opt, center, normal, scale, views, ws)
+# ---------------------------------------------------------------------------
+# The NCC objective and the plain refiner (USE_PALLAS_GN=False or
+# USE_WINDOWS=False): the JAX package's _optimize_patch, per patch over a
+# leading batch axis.
+# ---------------------------------------------------------------------------
+
+def _precompute_res(ctx, opt: Options, center, scale, views, ws):
+    """Hoist the per-view projection terms out of the refinement loop.
+
+    With center(x) = ref_center + x0*ref_ray, the homogeneous projection is
+    affine in x0: P.[center;1] = P.[ref_center;1] + x0 * P3.ref_ray."""
+    cams = ctx.cams
+    ref_ci = torch.clamp(views[:, 0], min=0).long()
+    ci = torch.clamp(views, min=0).long()
+    level = ws.level.long()
+    ref_ray = sampling.normalize3(center - cams.center[ref_ci])
+    ax = [sampling.normalize3(a[ref_ci])
+          for a in (cams.xaxis, cams.yaxis, cams.zaxis)]
+    P = cams.P[ci, level]                                 # (B, K, 3, 4)
+    Pl3 = P[..., :3]
+    ch = torch.cat([center, torch.ones_like(center[:, :1])], -1)
+    Pc_h = torch.einsum("bkij,bj->bki", P, ch)
+    Pr = torch.einsum("bkij,bj->bki", Pl3, ref_ray)
+    wlim = ctx.imgs.width[ci, level].to(center.dtype)
+    hlim = ctx.imgs.height[ci, level].to(center.dtype)
+    return (center, ref_ray, *ax, cams.center[ci], Pl3, Pc_h, Pr, wlim, hlim)
+
+
+def _normal_from_params(x, ax_x, ax_y, ax_z, opt: Options):
+    a1 = x[:, 1:2] * opt.ANGLE_SCALE
+    a2 = x[:, 2:3] * opt.ANGLE_SCALE
+    return (ax_x * (torch.sin(a1) * torch.cos(a2)) + ax_y * torch.sin(a2)
+            + ax_z * (-torch.cos(a1) * torch.cos(a2)))
+
+
+def _rho_from_textures(tex, valid, views):
+    """Robust incc of every slot against slot 0: (rho (B,K) zero on invalid
+    slots and the reference, n_valid (B,), ref_ok (B,))."""
+    others = valid & (torch.arange(valid.shape[1], device=valid.device) > 0)
+    incc = sampling.robust_incc(1.0 - sampling.ncc(tex[:, :1], tex))
+    rho = torch.where(others, incc, torch.zeros_like(incc))
+    return rho, torch.sum(others, dim=-1), valid[:, 0]
+
+
+def _residuals_fast(opt: Options, x, pre, scale, views, ws):
+    """Refiner residual pass on the precomputed terms (objective_fn via
+    setCenterNorm, PatchOptimizer.cpp:286-311, 401-414) with the sampling
+    level pinned to the window's level. x (B, 3)."""
+    (ref_center, ref_ray, ax_x, ax_y, ax_z, cam_c, Pl3, Pc_h, Pr,
+     wlim, hlim) = pre
+    W = ws.W
+    center = ref_center + x[:, 0:1] * ref_ray
+    normal = _normal_from_params(x, ax_x, ax_y, ax_z, opt)
+    # patch axes (calculatePatchAxis, PatchOptimizer.cpp:532-548)
+    z = sampling.normalize3(normal)
+    y = sampling.normalize3(torch.linalg.cross(z, ax_x, dim=-1))
+    xax = sampling.normalize3(torch.linalg.cross(y, z, dim=-1)) * scale[:, None]
+    yax = y * scale[:, None] * torch.sum(y * ax_y, dim=-1, keepdim=True)
+    # projections, affine in x0
+    ph_c = Pc_h + x[:, 0, None, None] * Pr                  # (B, K, 3)
+    ph_x = ph_c + torch.einsum("bkij,bj->bki", Pl3, xax)
+    ph_y = ph_c + torch.einsum("bkij,bj->bki", Pl3, yax)
+    one = torch.ones_like(ph_c[..., 2])
+    front = ph_c[..., 2] > 0.0
+    c2 = ph_c[..., :2] / torch.where(front, ph_c[..., 2], one)[..., None]
+    dx = ph_x[..., :2] / torch.where(ph_x[..., 2] != 0, ph_x[..., 2],
+                                     one)[..., None] - c2
+    dy = ph_y[..., :2] / torch.where(ph_y[..., 2] != 0, ph_y[..., 2],
+                                     one)[..., None] - c2
+    ray = sampling.normalize3(cam_c - center[:, None])
+    angle_ok = (torch.sum(ray * z[:, None], dim=-1)
+                >= sampling.cos32(opt.MAX_ANGLE))
+    tl, mn, mx = win_ops.grid_box(c2, dx, dy)
+    m = 3.0
+    bounds_ok = ((mn[..., 0] >= m) & (mn[..., 1] >= m)
+                 & (mx[..., 0] < wlim - m) & (mx[..., 1] < hlim - m))
+    org = torch.stack([ws.ox, ws.oy], dim=-1).to(c2.dtype)
+    cover_ok = (torch.all(mn - org >= 0.0, dim=-1)
+                & torch.all(mx - org <= W - 1.0, dim=-1))
+    valid = front & angle_ok & bounds_ok & cover_ok & (views >= 0)
+    gx, gy = win_ops.local_grid(tl, dx, dy, ws)
+    tex = sampling.normalize_tex(win_ops.hat_sample(
+        ws.win, win_ops.jax_clip(gx, 0.0, W - 1.0),
+        win_ops.jax_clip(gy, 0.0, W - 1.0)))
+    return _rho_from_textures(tex, valid, views)
+
+
+def _residuals(ctx, opt: Options, x, ref_center, ref_ray, ax_x, ax_y, ax_z,
+               scale, views, ws=None):
+    """Per-view robust incc residuals of PatchOptimizer::objective_fn via
+    setCenterNorm (PatchOptimizer.cpp:286-311, 401-414), sampled from the
+    full images (or the window cache). x (B, 3) = (depth, angle1, angle2).
+
+    Returns (rho (B,K) with invalid slots zeroed, n_valid (B,), ref_ok)."""
+    center = ref_center + x[:, 0:1] * ref_ray
+    normal = _normal_from_params(x, ax_x, ax_y, ax_z, opt)
+    ref_ci = torch.clamp(views[:, 0], min=0)
+    xax, yax, zax = sampling.patch_axes(ctx.cams, ref_ci, normal, scale)
+    tex, valid = _sample_views(ctx, opt, views, center, scale, xax, yax, zax,
+                               ws)
+    return _rho_from_textures(tex, valid, views)
+
+
+def _objective(ctx, opt: Options, x, ref_center, ref_ray, ax_x, ax_y, ax_z,
+               scale, views, ws=None):
+    """Scalar objective per patch: mean robust incc over valid views, 2.0
+    when the reference sample fails or too few views remain
+    (objective_fn:293-310)."""
+    return _mean_or_2(opt, *_residuals(ctx, opt, x, ref_center, ref_ray, ax_x,
+                                       ax_y, ax_z, scale, views, ws))
+
+
+def _mean_or_2(opt: Options, rho, n, ref_ok):
+    """The objective from the residuals (n and ref_ok bool/int or float)."""
+    mean = torch.sum(rho, dim=-1) / torch.clamp(n, min=1)
+    good = (ref_ok > 0) & (n >= opt.MIN_IMAGES_PER_PATCH - 1)
+    return torch.where(good, mean, torch.full_like(mean, 2.0))
+
+
+def _lm_step(J, rho, n, lam):
+    """Damped Gauss-Newton step on rho = r^2: g = sum_v J_v / n, H = sum_v
+    J_v J_v^T / (2 rho_v) / n, (H + lam diag(max(|diag H|, 1e-6))) step =
+    -g. A singular system (info != 0) or a non-finite step gives 0, as
+    jnp.linalg.solve's non-finite result is zeroed. J (B, 3, K)."""
+    n_f = torch.clamp(n, min=1.0)
+    g = torch.sum(J, dim=-1) / n_f[:, None]
+    w = torch.full_like(rho, 0.5) / (rho + GN_EPS)
+    H = (J * w[:, None, :]) @ J.transpose(1, 2) / n_f[:, None, None]
+    d = torch.clamp(torch.abs(torch.diagonal(H, dim1=1, dim2=2)), min=1e-6)
+    sol, info = torch.linalg.solve_ex(H + lam[:, None, None]
+                                      * torch.diag_embed(d), g)
+    step = -sol
+    ok = torch.isfinite(step) & (info == 0)[:, None]
+    return torch.where(ok, step, torch.zeros_like(step))
+
+
+def _optimize_patch(ctx, opt: Options, center, normal, scale, views, ws=None):
+    """The plain refiner of (depth, angle1, angle2), replacing the BOBYQA
+    call in PatchOptimizer::optimizePatch (PatchOptimizer.cpp:322-382).
+
+    LM_EXACT_J=False: derivative-free like the reference -- each of
+    ceil(LM_ITERS / LM_INNER) rounds refreshes J by forward differences (3
+    residual passes at x + h e_i) and runs LM_INNER trial steps with a
+    Broyden update after each; no early stop, fixed h (unlike the GN
+    kernel's FD mode). LM_EXACT_J=True: LM_ITERS_EXACT Levenberg steps with
+    J from torch.func.jacfwd, steps clamped to LM_STEP_CLAMP * h. With a
+    window cache the passes run against precomputed projection terms
+    (_residuals_fast). The objective evaluates the first
+    min(K, MAX_IMAGES_PER_PATCH) view slots (PatchOptimizer.cpp:298).
+
+    Returns (new_center (B,3), new_normal (B,3), ok (B,), f (B,))."""
+    all_views = views
+    kopt = min(views.shape[1], opt.MAX_IMAGES_PER_PATCH)
+    views = views[:, :kopt]
+    cams = ctx.cams
+    ref_ci = torch.clamp(views[:, 0], min=0).long()
+    ref_ray = sampling.normalize3(center - cams.center[ref_ci])
+    ax_x, ax_y, ax_z = (sampling.normalize3(a[ref_ci])
+                        for a in (cams.xaxis, cams.yaxis, cams.zaxis))
+    if ws is not None:
+        ws = win_ops.WinState(*(a[:, :kopt] for a in ws))
+        pre = _precompute_res(ctx, opt, center, scale, views, ws)
+
+        def res_fn(xx):
+            return _residuals_fast(opt, xx, pre, scale, views, ws)
+    else:
+        def res_fn(xx):
+            return _residuals(ctx, opt, xx, center, ref_ray, ax_x, ax_y, ax_z,
+                              scale, views)
+
+    def res_vec(xx):
+        rho, n, ref_ok = res_fn(xx)
+        return rho, n.to(rho.dtype), ref_ok.to(rho.dtype)
+
+    b = opt.ANGLE_BOUND
+    lo = center.new_tensor([-BIG, -b, -b])
+    hi = center.new_tensor([BIG, b, b])
+    x = _params_from_center_norm(center, normal, center, ref_ray, ax_x, ax_y,
+                                 ax_z, opt)
+    # FD steps: depth in world units scaled by the patch footprint, angles
+    # in units of pi/48
+    h = torch.stack([0.05 * scale, torch.full_like(scale, 0.25),
+                     torch.full_like(scale, 0.25)], dim=-1)
+    lam = torch.full_like(scale, opt.LM_LAMBDA0)
+
+    def accept(acc, new, old):
+        a = acc.reshape(acc.shape + (1,) * (new.dim() - 1))
+        return torch.where(a, new, old)
+
+    if opt.LM_EXACT_J:
+        def grad_pass(xx):
+            """rho, n, ref_ok and J (B, 3, K) at xx. The patches are
+            independent, so the derivative along a shift d shared by all of
+            them is each patch's own Jacobian."""
+            def shifted(d):
+                out = res_vec(xx + d)
+                return out[0], out
+            Jk, out = torch.func.jacfwd(shifted, has_aux=True)(
+                torch.zeros(3, dtype=xx.dtype, device=xx.device))
+            return (*out, Jk.transpose(1, 2))
+
+        cl = h * opt.LM_STEP_CLAMP
+        rho, n, ref_ok, J = grad_pass(x)
+        f = _mean_or_2(opt, rho, n, ref_ok)
+        for _ in range(int(opt.LM_ITERS_EXACT)):
+            step = torch.minimum(torch.maximum(_lm_step(J, rho, n, lam), -cl),
+                                 cl)
+            x_t = torch.minimum(torch.maximum(x + step, lo), hi)
+            rho_t, n_t, ref_t, J_t = grad_pass(x_t)
+            f_t = _mean_or_2(opt, rho_t, n_t, ref_t)
+            acc = f_t < f
+            x, rho, n, ref_ok, f, J = (accept(acc, a_, b_) for a_, b_ in (
+                (x_t, x), (rho_t, rho), (n_t, n), (ref_t, ref_ok), (f_t, f),
+                (J_t, J)))
+            lam = torch.clamp(torch.where(acc, lam * 0.5, lam * 4.0), 1e-7,
+                              1e7)
+    else:
+        inner = max(1, int(opt.LM_INNER))
+        eye3 = torch.eye(3, dtype=x.dtype, device=x.device)
+        rho, n, ref_ok = res_vec(x)
+        f = _mean_or_2(opt, rho, n, ref_ok)
+        for _ in range(-(-opt.LM_ITERS // inner)):
+            J = torch.stack([(res_vec(x + h[:, i:i + 1] * eye3[i])[0] - rho)
+                             / h[:, i:i + 1] for i in range(3)], dim=1)
+            for _ in range(inner):
+                x_new = torch.minimum(torch.maximum(
+                    x + _lm_step(J, rho, n, lam), lo), hi)
+                rho_t, n_t, ref_t = res_vec(x_new)
+                # Broyden rank-1 secant update, accepted or not
+                dx = x_new - x
+                dd = torch.sum(dx * dx, dim=-1)
+                pred = torch.sum(J * dx[:, :, None], dim=1)
+                upd = dx[:, :, None] * ((rho_t - rho - pred) / torch.clamp(
+                    dd, min=1e-20)[:, None])[:, None, :]
+                J = torch.where((dd > 1e-20)[:, None, None], J + upd, J)
+                f_new = _mean_or_2(opt, rho_t, n_t, ref_t)
+                acc = f_new < f
+                x, rho, n, ref_ok, f = (accept(acc, a_, b_) for a_, b_ in (
+                    (x_new, x), (rho_t, rho), (n_t, n), (ref_t, ref_ok),
+                    (f_new, f)))
+                lam = torch.clamp(torch.where(acc, lam * 0.5, lam * 4.0),
+                                  1e-7, 1e7)
+
+    # setCenterNorm(x) write-back (PatchOptimizer.cpp:401-414)
+    new_center = center + x[:, 0:1] * ref_ray
+    new_normal = _normal_from_params(x, ax_x, ax_y, ax_z, opt)
+    ok = _nviews(all_views) >= opt.MIN_IMAGES_PER_PATCH
+    return new_center, new_normal, ok, f
+
+
+def _use_gn_kernel(opt: Options) -> bool:
+    """Refine with the GN kernel (ops/gn.py), as the JAX package does on a
+    TPU; otherwise with the plain refiner _optimize_patch."""
+    return opt.USE_PALLAS_GN and opt.USE_WINDOWS
+
+
+def _use_batched_stages(opt: Options) -> bool:
+    # the batched post stage implements the FAST_SETREF formulation only
+    return opt.USE_BATCHED_STAGES and opt.USE_WINDOWS and opt.FAST_SETREF
+
+
+def _refine(ctx, opt: Options, center, normal, scale, views, ok, ws):
+    """optimizePatch for the whole batch, merged into (center, normal) where
+    every stage so far succeeded. Returns (center, normal, ok, resid)."""
+    if _use_gn_kernel(opt):
+        new_center, new_normal, ok3, resid = gn.gn_refine_batch(
+            ctx, opt, center, normal, scale, views, ws)
+    else:
+        new_center, new_normal, ok3, resid = _optimize_patch(
+            ctx, opt, center, normal, scale, views, ws)
     ok = ok & ok3
     center = torch.where(ok[:, None], new_center, center)
     normal = torch.where(ok[:, None], sampling.normalize3(new_normal), normal)
-    out = _run_post_b(ctx, opt, center, normal, scale, views, ok, ws_pre=ws)
+    return center, normal, ok, resid
+
+
+def _optimize_all(ctx, opt: Options, center, normal, scale, views):
+    """Batched runOptimization over B patches: one of the two stage
+    pipelines around the refiner (the GN kernel pads to its 128-patch block
+    itself, on every device). Returns (center, normal, scale, views, ok,
+    color, resid)."""
+    if _use_batched_stages(opt):
+        center, normal, views, ok, ws = _run_pre_b(ctx, opt, center, normal,
+                                                   scale, views)
+        center, normal, ok, resid = _refine(ctx, opt, center, normal, scale,
+                                            views, ok, ws)
+        out = _run_post_b(ctx, opt, center, normal, scale, views, ok,
+                          ws_pre=ws)
+    else:
+        center, normal, views, ok, ws = _run_pre(ctx, opt, center, normal,
+                                                 scale, views)
+        center, normal, ok, resid = _refine(ctx, opt, center, normal, scale,
+                                            views, ok, ws)
+        out = _run_post(ctx, opt, center, normal, scale, views, ok)
     return out + (resid,)
 
 

@@ -114,10 +114,13 @@ def sample_texture(cams, imgs, ci, center, scale, xaxis, yaxis, zaxis,
     gx = gx.reshape(gx.shape[:-2] + (PATCH_SIZE * PATCH_SIZE,))
     gy = gy.reshape(gy.shape[:-2] + (PATCH_SIZE * PATCH_SIZE,))
 
-    # clamp so invalid patches still gather in-bounds (masked out by `valid`)
-    gx = torch.minimum(torch.clamp(gx, min=0.0),
+    # clamp so invalid patches still gather in-bounds (masked out by
+    # `valid`); written as jnp.clip is (minimum of maximum), so that
+    # torch.func.jacfwd through it takes JAX's derivative at the bounds
+    zero = torch.zeros_like(gx)
+    gx = torch.minimum(torch.maximum(gx, zero),
                        torch.clamp(w[..., None] - 2.0, min=0.0))
-    gy = torch.minimum(torch.clamp(gy, min=0.0),
+    gy = torch.minimum(torch.maximum(gy, zero),
                        torch.clamp(h[..., None] - 2.0, min=0.0))
 
     tex = bilinear(imgs.tex, imgs.row0, imgs.width,

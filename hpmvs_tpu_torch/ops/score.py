@@ -166,13 +166,35 @@ def bilinear_taps(win, gx, gy, with_grad: bool = False):
     return val, gxv, gyv
 
 
+def seq_sum(t, dim: int):
+    """Sum along dim as the twins need it. On CUDA tensors, where a twin is
+    held against its kernel, one element at a time in index order (the
+    kernels' loop order), so the two round alike; on the CPU, where the
+    twins are held against the JAX package, torch.sum (neither order is
+    XLA's)."""
+    if not t.is_cuda:
+        return torch.sum(t, dim=dim)
+    t = t.movedim(dim, 0)
+    acc = t[0]
+    for i in range(1, t.shape[0]):
+        acc = acc + t[i]
+    return acc
+
+
+def div(t, c: float):
+    """t / c rounded once. On CUDA torch evaluates tensor / python_scalar as
+    t * (1 / c), which rounds twice; the kernels divide."""
+    return t / torch.tensor(c, dtype=t.dtype, device=t.device)
+
+
 def normalize_patch(tex):
     """Patch2d::normalize on (..., 49, 3) as the kernels compute it: centred
-    values times 1/std (1 when std is 0). Returns (cen, inv (..., 1, 1))."""
-    mc = torch.sum(tex, dim=-2, keepdim=True) / P2
+    values times 1/std (1 when std is 0), sums in the kernels' order (texels,
+    then channels). Returns (cen, inv (..., 1, 1))."""
+    mc = div(seq_sum(tex, -2), P2)[..., None, :]
     cen = tex - mc
-    var = torch.sum(cen * cen, dim=(-1, -2), keepdim=True)
-    sd = torch.sqrt(var / (P2 * 3.0))
+    var = seq_sum(seq_sum(cen * cen, -2), -1)[..., None, None]
+    sd = torch.sqrt(div(var, P2 * 3.0))
     inv = torch.where(sd == 0.0, torch.ones_like(sd), 1.0 / sd)
     return cen * inv, inv
 

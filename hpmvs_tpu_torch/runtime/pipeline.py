@@ -13,6 +13,7 @@ import logging
 import os
 import time
 
+from hpmvs_tpu_torch import resolve_device
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.io import nvm as nvm_io
 from hpmvs_tpu_torch.runtime.wavefront import Engine
@@ -20,20 +21,16 @@ from hpmvs_tpu_torch.runtime.wavefront import Engine
 log = logging.getLogger("hpmvs_tpu_torch")
 
 
-def default_device() -> str:
-    import torch
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
 def run(model: nvm_io.NvmModel, opt: Options, images=None,
         more_output: bool = False, light_output: int = 0,
-        device=None) -> Engine:
-    """Progressive densification main loop (main.cpp:145-202) on `device`
-    (default: the GPU when one is visible, else the CPU)."""
+        device="cuda") -> Engine:
+    """Progressive densification main loop (main.cpp:145-202) on `device`:
+    the GPU unless device="cpu" (RuntimeError when no GPU is visible)."""
+    device = resolve_device(device)
     os.makedirs(opt.OUTFOLDER, exist_ok=True)
     engine = Engine(model, opt, images=images,
                     visdata_path=os.path.join(opt.OUTFOLDER, "testvis.dat"),
-                    device=device or default_device())
+                    device=device)
     engine.seed()
     if more_output:
         engine.save_ply(os.path.join(opt.OUTFOLDER, "patches-init.ply"))

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from hpmvs_tpu_torch import resolve_device
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.core import depth as depth_mod
 from hpmvs_tpu_torch.core import scene as scene_mod
@@ -56,15 +57,14 @@ class Engine:
     buffers, host patch store + linear octree + priority queues."""
 
     def __init__(self, model, opt: Options, images=None,
-                 visdata_path: Optional[str] = None, device="cpu"):
+                 visdata_path: Optional[str] = None, device="cuda"):
         if opt.WAVE_DEPTH != 1 or opt.WAVE_LOOKAHEAD:
             raise NotImplementedError(
                 "not yet ported to hpmvs_tpu_torch: WAVE_DEPTH > 1 (deep "
                 "waves) and WAVE_LOOKAHEAD=True")
-        popt._check_supported(opt)
         self.opt = opt
         self.model = model
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.scene = scene_mod.build_scene(model, opt, images=images,
                                            visdata_path=visdata_path,
                                            device=self.device)

@@ -132,7 +132,7 @@ def test_covisibility_and_seeds_identical(scenes):
     np.testing.assert_array_equal(jscene.extract_covisibility(js.model, jopt),
                                   pscene.extract_covisibility(ps.model, popt))
     jsc = jscene.build_scene(js.model, jopt, images=js.images)
-    psc = pscene.build_scene(ps.model, popt, images=ps.images)
+    psc = pscene.build_scene(ps.model, popt, images=ps.images, device="cpu")
     np.testing.assert_array_equal(np.asarray(jsc.ctx.imgs.tex),
                                   psc.ctx.imgs.tex.numpy())
     np.testing.assert_array_equal(jsc.covis_np, psc.covis_np)

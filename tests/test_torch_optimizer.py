@@ -79,14 +79,34 @@ def test_optimize_batch_runs_every_twin(outputs):
     once; no kernel launches."""
     *_, stats = outputs
     assert {k: v["twin_calls"] for k, v in stats.items()} == \
-        {"fetch": 2, "score": 2, "permute": 1, "gn": 1}
+        {"fetch": 2, "score": 2, "permute": 1, "gn": 1, "gn_fd": 0}
     assert all(v["launches"] == 0 for v in stats.values())
 
 
-def test_unported_options_raise():
-    ps = make_plane_scene(n_cams=4, imgsize=64, n_points=10, seed=2)
+@pytest.fixture(scope="module")
+def tiny_plane():
+    return make_plane_scene(n_cams=4, imgsize=64, n_points=10, seed=2)
+
+
+@pytest.mark.parametrize("kw", [dict(WAVE_DEPTH=4), dict(WAVE_LOOKAHEAD=True)])
+def test_unported_options_raise(tiny_plane, kw):
+    """Deep waves and wave lookahead are the engine modes still refused."""
     from hpmvs_tpu_torch.runtime.wavefront import Engine
-    for kw in (dict(WAVE_DEPTH=4), dict(WAVE_LOOKAHEAD=True),
-               dict(LM_EXACT_J=False), dict(FAST_SETREF=False)):
-        with pytest.raises(NotImplementedError):
-            Engine(ps.model, plane_options(POptions, **kw), images=ps.images)
+    with pytest.raises(NotImplementedError):
+        Engine(tiny_plane.model, plane_options(POptions, **kw),
+               images=tiny_plane.images, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(LM_EXACT_J=False),
+                                dict(FAST_SETREF=False),
+                                dict(FAST_SETREF=False, LM_EXACT_J=False),
+                                dict(USE_BATCHED_STAGES=False),
+                                dict(USE_WINDOWS=False),
+                                dict(USE_PALLAS_GN=False)])
+def test_ported_options_build_an_engine(tiny_plane, kw):
+    """Every optimizer option (stage pipeline, refiner, GN mode) builds an
+    engine; only the WAVE_* engine modes are refused."""
+    from hpmvs_tpu_torch.runtime.wavefront import Engine
+    eng = Engine(tiny_plane.model, plane_options(POptions, **kw),
+                 images=tiny_plane.images, device="cpu")
+    assert eng.device.type == "cpu"

@@ -82,4 +82,4 @@ def test_cli_refuses_unported_flags(tmp_path):
     nvm.write_text("NVM_V3\n0")
     for flag in (["--ba"], ["--resume", "ck.npz"], ["--spatial"]):
         with pytest.raises(SystemExit):
-            cli.main(["--nvm", str(nvm)] + flag)
+            cli.main(["--nvm", str(nvm), "--device", "cpu"] + flag)
