@@ -9,9 +9,11 @@ Phases, each printing one JSON line:
   3. kernels  -- each kernel (fetch, score, permute, gn, gn_fd) and the GN
                  kernel's debug_j output against its plain PyTorch twin on
                  the card at the main path's shapes (B=2048, K=8 pre stage,
-                 K=6 in the GN kernel, W=12), all timed (CUDA events, median
-                 of 10 after warm-up) beside their bound and, where one
-                 exists, one PyTorch call computing the same function; then
+                 K=6 in the GN kernel, W=12; the three GN instantiations
+                 bit-equal, with their launch shape and the time of one
+                 wave of clusters), all timed (CUDA events, median of 10
+                 after warm-up) beside their bound and, where one exists,
+                 one PyTorch call computing the same function; then
                  one optimize_batch of the 2048 patches on the default path,
                  with LM_EXACT_J=False, and with FAST_SETREF=False and
                  LM_EXACT_J=False, timed the same way.
@@ -36,6 +38,11 @@ Phases, each printing one JSON line:
                  LM_EXACT_J=False, under its own wall budget, same checks.
 Any failed check raises (exit code 1). The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
+
+python3 chip_smoke.py --profile instead builds the kernels and runs the
+plane twice on the default path, the second time under torch.profiler
+(device activity only), and prints the device's busy time by kernel, the
+GN kernel's share of it, and the idle share of the unprofiled run's wall.
 """
 
 import dataclasses
@@ -43,6 +50,7 @@ import json
 import os
 import re
 import subprocess
+import sys
 import time
 
 T0 = time.time()
@@ -107,8 +115,9 @@ MODES = {"0": "exact", "1": "fd", "2": "debug_j"}
 
 
 def ptxas_report(log):
-    """{kernel: "R registers, S B stack, X B spill stores"} from nvcc's
-    -Xptxas=-v output (the GN kernel's instantiations by mode)."""
+    """{kernel: "R registers, M B smem, S B stack, X B spill stores, Y B
+    spill loads"} from nvcc's -Xptxas=-v output (the GN kernel's
+    instantiations by mode)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Function properties for \S*?\d((?:[a-z]+_)+kernel)"
@@ -119,10 +128,13 @@ def ptxas_report(log):
             out[name] = ""
         elif name and "stack frame" in ln:
             st = re.findall(r"(\d+) bytes", ln)
-            out[name] = f"{st[0]} B stack, {st[1]} B spill stores"
+            out[name] = (f"{st[0]} B stack, {st[1]} B spill stores, "
+                         f"{st[2]} B spill loads")
         elif name and "registers" in ln:
             r = re.search(r"Used (\d+) registers", ln).group(1)
-            out[name] = f"{r} registers, " + out[name]
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[name] = (f"{r} registers, {sm.group(1) if sm else 0} B smem, "
+                         + out[name])
     return out
 
 
@@ -289,6 +301,43 @@ def facade_phase(device, sc, name, path, max_tree_level, budget):
     del eng
 
 
+def profile_phase(device):
+    """The default plane, run once to warm up and time, then again under
+    torch.profiler with device activity only: device busy time (the sum of
+    kernel times; one stream), the GN kernel's share of it, the top
+    kernels, and the idle share of the unprofiled wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from hpmvs_tpu_torch.runtime import pipeline
+    opt, ps, _, _ = plane_setup(device)
+    opt = dataclasses.replace(opt, OUTFOLDER=os.path.join(OUT_DIR,
+                                                          "plane_profile"))
+
+    def run():
+        torch.cuda.synchronize()
+        t = time.time()
+        pipeline.run(ps.model, opt, images=ps.images, device=device)
+        torch.cuda.synchronize()
+        return time.time() - t
+
+    wall = run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_prof = run()
+    us = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0:
+            us[e.key] = us.get(e.key, 0.0) + t
+    busy = sum(us.values()) / 1e6
+    gn_s = sum(v for k, v in us.items() if "gn_refine_kernel" in k) / 1e6
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:8]
+    emit("profile", wall_s=wall, profiled_wall_s=wall_prof,
+         device_busy_s=busy, idle_share=(1.0 - busy / wall) if busy else None,
+         gn_s=gn_s, gn_share=gn_s / busy if busy else None,
+         top=[{"kernel": k[:90], "s": v / 1e6} for k, v in top])
+
+
 def main():
     kind, smi = device_phase()
     import torch
@@ -332,4 +381,9 @@ if __name__ == "__main__":
     except ImportError as e:
         raise SystemExit(f"chip_smoke: FAILED: run from the repository "
                          f"root: {e}")
-    main()
+    if sys.argv[1:] == ["--profile"]:
+        device_phase()
+        build_phase()
+        profile_phase("cuda")
+    else:
+        main()

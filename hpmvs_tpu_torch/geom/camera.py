@@ -19,6 +19,8 @@ import math
 import numpy as np
 import torch
 
+from hpmvs_tpu_torch import resolve_device
+
 
 @dataclasses.dataclass
 class Cameras:
@@ -59,11 +61,13 @@ def _quat_to_R(rq: np.ndarray) -> np.ndarray:
 
 
 def build_cameras(nvm_cameras, widths, heights, max_level: int,
-                  device="cpu") -> Cameras:
-    """Host-side construction from parsed NVM cameras (Camera.cpp:34-81).
+                  device="cuda") -> Cameras:
+    """Host-side construction from parsed NVM cameras (Camera.cpp:34-81),
+    on the GPU unless device="cpu" (resolve_device: raises without one).
 
     widths/heights: per-camera level-0 image sizes (after undistortion).
     """
+    device = resolve_device(device)
     ncam = len(nvm_cameras)
     nlevel = max_level + 1
     P = np.zeros((ncam, nlevel, 3, 4), dtype=np.float32)

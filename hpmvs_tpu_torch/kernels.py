@@ -129,7 +129,8 @@ def lib() -> ctypes.CDLL:
         handle = ctypes.CDLL(str(path))
         for name in ("hpmvs_fetch_windows", "hpmvs_sample_views",
                      "hpmvs_permute_windows", "hpmvs_gn_refine",
-                     "hpmvs_gn_refine_fd", "hpmvs_gn_debug_j"):
+                     "hpmvs_gn_refine_fd", "hpmvs_gn_debug_j",
+                     "hpmvs_gn_launch_info"):
             getattr(handle, name).restype = ctypes.c_int
         _Lib.handle, _Lib.path = handle, path
     return _Lib.handle

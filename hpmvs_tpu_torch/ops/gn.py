@@ -19,6 +19,10 @@ The objective evaluates the first min(K, MAX_IMAGES_PER_PATCH) view slots
 The FD mode is the TPU kernel's algorithm, not the plain refiner's
 (ops/optimizer._optimize_patch, FD branch): it shrinks the FD step every
 round and stops a block early.
+
+The kernel runs one warp per patch and sums over the 49 texels in its lane
+order (`lane_sum`); on CUDA tensors the twin sums in the same order, so the
+two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ import torch
 from hpmvs_tpu_torch import kernels
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.ops import sampling
-from hpmvs_tpu_torch.ops.score import (bilinear_taps, div, normalize_patch,
-                                       sampling_grid, seq_sum)
+from hpmvs_tpu_torch.ops.score import (bilinear_taps, div, sampling_grid,
+                                       seq_sum)
 from hpmvs_tpu_torch.ops.windows import WinState
 
 NB = 128          # patches per early-stop block
@@ -175,9 +179,70 @@ def gn_refine(st: GNStatics, x0, h, ref, scale, pc, pr, p9, camc, lim, org,
     return x, f
 
 
+_LAUNCH_KEYS = ("ctas", "threads_per_cta", "ctas_per_cluster",
+                "static_smem_bytes", "registers", "local_bytes",
+                "max_active_clusters")
+
+
+def launch_info(st: GNStatics, B: int) -> dict:
+    """How the GN kernel in st's mode launches for B patches, as the loaded
+    library and the CUDA runtime report it: CTAs, threads per CTA, CTAs per
+    cluster, static shared memory per CTA, registers and local memory per
+    thread, and the most clusters the card holds at once."""
+    mode = 2 if st.debug_j else (0 if st.exact_j else 1)
+    out = (ctypes.c_int * len(_LAUNCH_KEYS))()
+    err = kernels.lib().hpmvs_gn_launch_info(ctypes.c_int(mode),
+                                             ctypes.c_int(B), out)
+    if err != 0:
+        raise RuntimeError(f"hpmvs_gn_launch_info failed with error {err}")
+    return dict(zip(_LAUNCH_KEYS, out))
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch twin: the kernel's algorithm, vectorized over patches.
 # ---------------------------------------------------------------------------
+
+def _ordered(t, ordered):
+    return t.is_cuda if ordered is None else ordered
+
+
+def lane_sum(t, dim: int, ordered=None):
+    """Sum over the 49-texel axis dim. Ordered (by default on CUDA tensors,
+    where the twin is held against its kernel) in the kernel's order: lane
+    l < 17 adds texel l + 32 to texel l, then an xor butterfly over 32
+    lanes with offsets 16, 8, 4, 2, 1 (csrc/gn.cu::lane_sums); otherwise
+    torch.sum, as ops/score.py::seq_sum on the CPU. ordered=True forces the
+    kernel's order on any device."""
+    if not _ordered(t, ordered):
+        return torch.sum(t, dim=dim)
+    t = t.movedim(dim, -1)
+    v = t[..., :32].clone()
+    v[..., :P2 - 32] += t[..., 32:P2]
+    o = 16
+    while o:
+        v = v[..., :o] + v[..., o:2 * o]
+        o //= 2
+    return v[..., 0]
+
+
+def _chan_sum(t, ordered):
+    """Sum over the last (channel) axis in channel order when ordered, as
+    ops/score.py::seq_sum does on CUDA."""
+    if not _ordered(t, ordered):
+        return torch.sum(t, dim=-1)
+    return t[..., 0] + t[..., 1] + t[..., 2]
+
+
+def _normalize_lanes(tex, ordered=None):
+    """Patch2d::normalize of (..., 49, 3) as the GN kernel computes it
+    (csrc/gn.cu::normalize_lanes): texel sums by lane_sum, channel sums in
+    channel order. Returns (cen, inv (..., 1, 1))."""
+    mc = div(lane_sum(tex, -2, ordered), P2)[..., None, :]
+    cen = tex - mc
+    var = _chan_sum(lane_sum(cen * cen, -2, ordered), ordered)[..., None, None]
+    sd = torch.sqrt(div(var, P2 * 3.0))
+    inv = torch.where(sd == 0.0, torch.ones_like(sd), 1.0 / sd)
+    return cen * inv, inv
 
 def _dot3(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
@@ -193,9 +258,10 @@ def _norm3(v):
     return v * torch.rsqrt(torch.clamp(_dot3(v, v), min=1e-24))[..., None]
 
 
-def _objective(st: GNStatics, a, x, grad: bool):
+def _objective(st: GNStatics, a, x, grad: bool, ordered=None):
     """One objective pass at x (B, 3) for all patches. Returns (rho (B,K),
-    n (B,), ref_ok (B,), J (B,3,K) or None); see csrc/gn.cu::objective."""
+    n (B,), ref_ok (B,), J (B,3,K) or None); see csrc/gn.cu::objective.
+    ordered: the texel and channel sums in the kernel's order (lane_sum)."""
     K, W = st.K, st.W
     sA = st.angle_scale
     half = P / 2.0
@@ -277,9 +343,9 @@ def _objective(st: GNStatics, a, x, grad: bool):
         tex, Gx, Gy = bilinear_taps(win, gx, gy, with_grad=True)
     else:
         tex = bilinear_taps(win, gx, gy)
-    cen, inv = normalize_patch(tex)                   # (B,K,49,3), (B,K,1,1)
+    cen, inv = _normalize_lanes(tex, ordered)         # (B,K,49,3), (B,K,1,1)
     cenr = cen[:, :1]
-    dot = seq_sum(seq_sum(cenr * cen, -2), -1)                  # (B, K)
+    dot = _chan_sum(lane_sum(cenr * cen, -2, ordered), ordered)   # (B, K)
     incc = 1.0 - div(dot, P2 * 3.0)
     others = valid.clone()
     others[:, 0] = False
@@ -311,11 +377,13 @@ def _objective(st: GNStatics, a, x, grad: bool):
         dgx = dtlx + IX * ddxx[q][..., None] + IY * ddyx[q][..., None]
         dgy = dtly + IX * ddxy[q][..., None] + IY * ddyy[q][..., None]
         dtex = Gx * dgx[..., None] + Gy * dgy[..., None]          # (B,K,49,3)
-        dm = div(seq_sum(dtex, -2), P2)[..., None, :]
-        ds = div(seq_sum(seq_sum(cen * dtex, -2), -1), P2 * 3.0)
+        dm = div(lane_sum(dtex, -2, ordered), P2)[..., None, :]
+        ds = div(_chan_sum(lane_sum(cen * dtex, -2, ordered), ordered),
+                 P2 * 3.0)
         ds = ds[..., None, None]
         dcen = (dtex - dm) * inv - cen * (ds * inv)
-        ddot = seq_sum(seq_sum(dcen[:, :1] * cen + cenr * dcen, -2), -1)
+        ddot = _chan_sum(lane_sum(dcen[:, :1] * cen + cenr * dcen, -2,
+                                  ordered), ordered)
         J.append(torch.where(others, div(-ddot, P2 * 3.0) * dr,
                              torch.zeros_like(ddot)))
     return rho, n, ref_ok, torch.stack(J, dim=1)
@@ -357,12 +425,13 @@ def _newton_step(J, rho, n, lam):
 
 
 def gn_refine_twin(st: GNStatics, x0, h, ref, scale, pc, pr, p9, camc, lim,
-                   org, mask, win, passes: dict = None):
+                   org, mask, win, passes: dict = None, ordered=None):
     """Plain PyTorch version of the GN kernel (same contract, every mode).
     Each 128-patch block runs its own loop: a block that stopped keeps its
     state while the others iterate on. passes: optional dict that receives
     the number of 128-patch block passes the kernel would run ("value",
-    "grad"), the work this run's data needs."""
+    "grad"), the work this run's data needs. ordered: see lane_sum (None:
+    the kernel's order on CUDA tensors only)."""
     kernels.STATS["gn" if st.exact_j or st.debug_j else "gn_fd"
                   ].twin_calls += 1
     B = x0.shape[0]
@@ -377,27 +446,29 @@ def gn_refine_twin(st: GNStatics, x0, h, ref, scale, pc, pr, p9, camc, lim,
 
     if st.debug_j:
         tally("grad", B // NB)
-        rho, n, ref_ok, J = _objective(st, a, x0, True)
+        rho, n, ref_ok, J = _objective(st, a, x0, True, ordered)
         return x0, _mean_or_2(st, rho, n, ref_ok), J, rho
     b = st.angle_bound
     lo = x0.new_tensor([-BIG, -b, -b])
     hi = x0.new_tensor([BIG, b, b])
     refine = _refine_exact if st.exact_j else _refine_fd
-    return refine(st, a, x0, h, lo, hi, tally)
+    return refine(st, x0, h, lo, hi, tally,
+                  lambda x, grad: _objective(st, a, x, grad, ordered))
 
 
 def _clip(v, lo, hi):
     return torch.minimum(torch.maximum(v, lo), hi)
 
 
-def _refine_exact(st: GNStatics, a, x0, h, lo, hi, tally):
-    """The exact-Jacobian loop (pallas_gn.py:475-522)."""
+def _refine_exact(st: GNStatics, x0, h, lo, hi, tally, objective):
+    """The exact-Jacobian loop (pallas_gn.py:475-522); objective(x, grad)
+    is one pass."""
     B = x0.shape[0]
     cl = h * st.step_clamp
     nblk = B // NB
     x = x0
     tally("grad", nblk)
-    rho, n, ref_ok, J = _objective(st, a, x, True)
+    rho, n, ref_ok, J = objective(x, True)
     f = _mean_or_2(st, rho, n, ref_ok)
     lam = torch.full_like(f, st.lam0)
     dry = torch.zeros(nblk, dtype=torch.int32, device=x.device)
@@ -409,7 +480,7 @@ def _refine_exact(st: GNStatics, a, x0, h, lo, hi, tally):
         tally("grad", run_blk.sum())
         step = _clip(_newton_step(J, rho, n, lam), -cl, cl)
         xt = _clip(x + step, lo, hi)
-        rho_t, n_t, ref_t, J_t = _objective(st, a, xt, True)
+        rho_t, n_t, ref_t, J_t = objective(xt, True)
         f_t = _mean_or_2(st, rho_t, n_t, ref_t)
         acc = f_t < f
         imp = torch.where(acc, f - f_t, torch.zeros_like(f))
@@ -430,7 +501,7 @@ def _refine_exact(st: GNStatics, a, x0, h, lo, hi, tally):
         tally("value", nblk)
         step = _clip(_newton_step(J, rho, n, lam), -cl, cl)
         xt = _clip(x + step, lo, hi)
-        rho_t, n_t, ref_t, _ = _objective(st, a, xt, False)
+        rho_t, n_t, ref_t, _ = objective(xt, False)
         f_t = _mean_or_2(st, rho_t, n_t, ref_t)
         acc = f_t < f
         x = torch.where(acc[:, None], xt, x)
@@ -438,7 +509,7 @@ def _refine_exact(st: GNStatics, a, x0, h, lo, hi, tally):
     return x, f
 
 
-def _refine_fd(st: GNStatics, a, x0, h, lo, hi, tally):
+def _refine_fd(st: GNStatics, x0, h, lo, hi, tally, objective):
     """The FD/Broyden loop (pallas_gn.py:524-595): value passes only. Each
     round refreshes J by forward differences at x + e_i h_i hs, runs
     st.inner unclamped trials with a Broyden update after each (accepted or
@@ -448,7 +519,7 @@ def _refine_fd(st: GNStatics, a, x0, h, lo, hi, tally):
     nblk = B // NB
     x = x0
     tally("value", nblk)
-    rho, n, ref_ok, _ = _objective(st, a, x, False)
+    rho, n, ref_ok, _ = objective(x, False)
     f = _mean_or_2(st, rho, n, ref_ok)
     lam = torch.full_like(f, st.lam0)
     hs = torch.ones((), dtype=x.dtype, device=x.device)
@@ -465,12 +536,12 @@ def _refine_fd(st: GNStatics, a, x0, h, lo, hi, tally):
         for q in range(3):
             xp = x.clone()
             xp[:, q] = x[:, q] + hr[:, q]
-            rho_q = _objective(st, a, xp, False)[0]
+            rho_q = objective(xp, False)[0]
             cols.append((rho_q - rho) / hr[:, q:q + 1])
         J = torch.stack(cols, dim=1)                         # (B, 3, K)
         for _ in range(st.inner):
             xn = _clip(x + _newton_step(J, rho, n, lam), lo, hi)
-            rho_t, n_t, ref_t, _ = _objective(st, a, xn, False)
+            rho_t, n_t, ref_t, _ = objective(xn, False)
             dx = xn - x
             dd = dx[:, 0] * dx[:, 0] + dx[:, 1] * dx[:, 1] + dx[:, 2] * dx[:, 2]
             pred = (J[:, 0] * dx[:, 0:1] + J[:, 1] * dx[:, 1:2]

@@ -12,6 +12,7 @@ from hpmvs_tpu_torch import cli, interop, resolve_device
 from hpmvs_tpu_torch.config import Options as POptions
 from hpmvs_tpu_torch.core import depth as pdepth
 from hpmvs_tpu_torch.core import scene as pscene
+from hpmvs_tpu_torch.geom import camera as pcam
 from hpmvs_tpu_torch.io import nvm as pnvm
 from hpmvs_tpu_torch.runtime import pipeline
 from hpmvs_tpu_torch.runtime.wavefront import Engine
@@ -51,7 +52,7 @@ def test_resolve_device(no_gpu):
 
 
 @pytest.mark.parametrize("entry", ["engine", "pipeline", "scene", "depth",
-                                   "interop"])
+                                   "interop", "cameras"])
 def test_entry_points_refuse_the_cpu_by_default(no_gpu, plane, tmp_path,
                                                 entry):
     ps, _ = plane
@@ -67,6 +68,9 @@ def test_entry_points_refuse_the_cpu_by_default(no_gpu, plane, tmp_path,
         "interop": lambda **kw: interop.depth_pack_from_numpy(
             np.zeros(4, np.float32), np.zeros((1, 1), np.int32),
             np.ones((1, 1), np.int32), np.full((1, 1), 4, np.int32), **kw),
+        "cameras": lambda **kw: pcam.build_cameras(ps.model.cameras,
+                                                   [64] * 4, [64] * 4,
+                                                   opt.MAXLEVEL, **kw),
     }
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()

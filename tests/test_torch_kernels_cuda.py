@@ -44,7 +44,23 @@ def results():
                                   "gn_debug_j"])
 def test_kernel_matches_twin(results, name):
     """gn_fd is the GN kernel's FD/Broyden mode, gn_debug_j its debug_j
-    output (counted with the exact mode's launches)."""
+    output (counted with the exact mode's launches). The three GN results
+    are ok only when bit-equal to the twin (kernel_check._check_gn)."""
     r = results[name]
     assert r.ok, r.detail
     assert kernels.STATS[{"gn_debug_j": "gn"}.get(name, name)].launches > 0
+
+
+@pytest.mark.parametrize("name", ["gn", "gn_fd", "gn_debug_j"])
+def test_gn_is_bit_equal_and_fills_the_card(results, name):
+    """One warp per patch, one cluster of 8 CTAs per 128-patch block: at
+    B=2048 128 CTAs (a thread per patch launched 16). Local memory holds no
+    spills: at most the 32 B stack frame of sinf/cosf's reduction of huge
+    arguments."""
+    r = results[name]
+    assert r.max_abs_err == 0.0, r.detail
+    assert "bit-equal" in r.detail and "False" not in r.detail, r.detail
+    info = r.launch
+    assert info["ctas"] > 16 and info["ctas"] == 2048 // 16, info
+    assert info["ctas_per_cluster"] == 8 and info["threads_per_cta"] == 512
+    assert info["local_bytes"] <= 32, info

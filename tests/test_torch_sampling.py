@@ -46,7 +46,7 @@ def setup():
 def test_build_cameras_identical(setup):
     opt, ps, sc, ctx, _ = setup
     cams = pcam.build_cameras(ps.model.cameras, [128] * 4, [128] * 4,
-                              opt.MAXLEVEL)
+                              opt.MAXLEVEL, device="cpu")
     for f in sc.ctx.cams._fields:
         np.testing.assert_array_equal(getattr(cams, f).numpy(),
                                       np.asarray(getattr(sc.ctx.cams, f)))
