@@ -5,18 +5,23 @@ Run from the root of a checkout: python3 chip_smoke.py
 Phases, each printing one JSON line:
   1. device   -- the card (torch and nvidia-smi); no CUDA -> exit 1.
   2. build    -- nvcc builds hpmvs_tpu_torch/csrc into build/ (one nvcc per
-                 source, in parallel); the ptxas report of every kernel.
+                 source, in parallel); the ptxas report of every kernel
+                 (registers, static shared memory, stack, spills).
   3. kernels  -- each kernel (fetch, score, permute, gn, gn_fd) and the GN
                  kernel's debug_j output against its plain PyTorch twin on
                  the card at the main path's shapes (B=2048, K=8 pre stage,
                  K=6 in the GN kernel, W=12; the three GN instantiations
                  bit-equal, with their launch shape and the time of one
-                 wave of clusters), all timed (CUDA events, median of 10
-                 after warm-up) beside their bound and, where one exists,
-                 one PyTorch call computing the same function; then
-                 one optimize_batch of the 2048 patches on the default path,
+                 wave of clusters), each with two times beside its bound
+                 and, where one exists, one PyTorch call computing the
+                 same function, timed alike:
+                 device_ms, the kernel alone on the device (CUDA events
+                 around 20 back-to-back calls behind a sleeping stream,
+                 median of 5 runs), and call_ms, one call as the main path
+                 pays it, host work included (median of 10); then one
+                 optimize_batch of the 2048 patches on the default path,
                  with LM_EXACT_J=False, and with FAST_SETREF=False and
-                 LM_EXACT_J=False, timed the same way.
+                 LM_EXACT_J=False (call time, median of 10).
   4. plane    -- bench.py's plane scene and Options through
                  hpmvs_tpu_torch.runtime.pipeline.run to completion: fetch,
                  score, permute and gn launched, no twin called, >= 0.95 of
@@ -37,12 +42,15 @@ Phases, each printing one JSON line:
   7. facade_exactref_fd -- the same facade with FAST_SETREF=False and
                  LM_EXACT_J=False, under its own wall budget, same checks.
 Any failed check raises (exit code 1). The last line of standard output is
-{"ok": true, "device": {...}}; the line before it lists the kernels.
+{"ok": true, "device": {...}}; the line before it lists the kernels (ms is
+device_ms; call_ms beside it).
 
 python3 chip_smoke.py --profile instead builds the kernels and runs the
 plane twice on the default path, the second time under torch.profiler
 (device activity only), and prints the device's busy time by kernel, the
-GN kernel's share of it, and the idle share of the unprofiled run's wall.
+GN kernel's share of it, and the idle share of the unprofiled run's wall;
+then the exactref_fd plane under the profiler. For each path it lists every
+hand-written kernel's device time and launches in that plane run.
 """
 
 import dataclasses
@@ -175,7 +183,7 @@ def kernels_phase(device):
     for name, sw in (("default", {}), ("fd", dict(LM_EXACT_J=False)),
                      ("exactref_fd", EXACTREF_FD)):
         o = dataclasses.replace(opt, **sw)
-        ms = kernel_check.time_ms(
+        ms = kernel_check.call_ms(
             lambda: popt.optimize_batch(scene.ctx, o, *batch), reps=10)
         emit("optimize_batch", path=name, B=len(batch[0]), ms=ms,
              patches_per_s=len(batch[0]) / (ms / 1e3))
@@ -301,41 +309,67 @@ def facade_phase(device, sc, name, path, max_tree_level, budget):
     del eng
 
 
+# csrc kernel function -> kernel name (gn_refine_kernel is the exact mode on
+# the default path and the FD/Broyden mode on exactref_fd)
+PROFILE_KERNELS = {"fetch_windows_kernel": "fetch",
+                   "sample_views_kernel": "score",
+                   "permute_windows_kernel": "permute",
+                   "gn_refine_kernel": {"default": "gn", "exactref_fd": "gn_fd"}}
+
+
 def profile_phase(device):
     """The default plane, run once to warm up and time, then again under
     torch.profiler with device activity only: device busy time (the sum of
     kernel times; one stream), the GN kernel's share of it, the top
-    kernels, and the idle share of the unprofiled wall."""
+    kernels, and the idle share of the unprofiled wall. Then the
+    exactref_fd plane under the profiler. For each path, every hand-written
+    kernel's device time and launches in the run (profiler) beside its
+    wrapper's launch count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from hpmvs_tpu_torch import kernels
     from hpmvs_tpu_torch.runtime import pipeline
     opt, ps, _, _ = plane_setup(device)
-    opt = dataclasses.replace(opt, OUTFOLDER=os.path.join(OUT_DIR,
-                                                          "plane_profile"))
 
-    def run():
+    def run(path):
+        o = dataclasses.replace(opt, **PATH_SWITCHES[path],
+                                OUTFOLDER=os.path.join(OUT_DIR,
+                                                       f"profile_{path}"))
         torch.cuda.synchronize()
+        kernels.reset_counts()
         t = time.time()
-        pipeline.run(ps.model, opt, images=ps.images, device=device)
+        pipeline.run(ps.model, o, images=ps.images, device=device)
         torch.cuda.synchronize()
         return time.time() - t
 
-    wall = run()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall_prof = run()
-    us = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-        if t > 0:
-            us[e.key] = us.get(e.key, 0.0) + t
-    busy = sum(us.values()) / 1e6
-    gn_s = sum(v for k, v in us.items() if "gn_refine_kernel" in k) / 1e6
-    top = sorted(us.items(), key=lambda kv: -kv[1])[:8]
-    emit("profile", wall_s=wall, profiled_wall_s=wall_prof,
-         device_busy_s=busy, idle_share=(1.0 - busy / wall) if busy else None,
-         gn_s=gn_s, gn_share=gn_s / busy if busy else None,
-         top=[{"kernel": k[:90], "s": v / 1e6} for k, v in top])
+    wall = run("default")
+    for path in ("default", "exactref_fd"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall_prof = run(path)
+        launches, _ = launch_counts()
+        us, calls = {}, {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+            if t > 0:
+                us[e.key] = us.get(e.key, 0.0) + t
+                calls[e.key] = calls.get(e.key, 0) + e.count
+        busy = sum(us.values()) / 1e6
+        gn_s = sum(v for k, v in us.items() if "gn_refine_kernel" in k) / 1e6
+        top = sorted(us.items(), key=lambda kv: -kv[1])[:8]
+        hand = {}
+        for fn, name in PROFILE_KERNELS.items():
+            name = name[path] if isinstance(name, dict) else name
+            keys = [k for k in us if fn in k]
+            hand[name] = {"device_ms": sum(us[k] for k in keys) / 1e3,
+                          "kernel_launches": sum(calls[k] for k in keys),
+                          "wrapper_launches": launches[name]}
+        extra = (dict(wall_s=wall, idle_share=(1.0 - busy / wall)
+                      if busy else None) if path == "default" else {})
+        emit("profile", path=path, profiled_wall_s=wall_prof,
+             device_busy_s=busy, gn_s=gn_s,
+             gn_share=gn_s / busy if busy else None, hand_written=hand,
+             top=[{"kernel": k[:90], "s": v / 1e6} for k, v in top], **extra)
 
 
 def main():

@@ -14,7 +14,15 @@ the GN modes the operations are counted from the passes this run's data
 needed (the twin reports how many 128-patch block passes ran) times the
 kernel's per-pass arithmetic (flops_per_pass). `library_ms` times one
 PyTorch call that computes the same function where there is one (fetch: one
-advanced-indexing gather; permute: one torch.gather), else None.
+advanced-indexing gather; permute: one torch.gather), else None (score:
+F.grid_sample samples but neither normalises nor clips as the kernel does).
+
+Two times for every kernel and yardstick (timing.py): device_ms (time_ms:
+a run of back-to-back calls behind a sleeping stream, so only device time
+counts) and call_ms (call_ms: events around one call on an idle stream,
+the host's work in the wrapper included: what the main path pays a
+launch). Their difference is the wrapper's host cost. The twins get
+call_ms only.
 
 Tolerances:
   fetch (B1), permute (B3): bit-exact (copies).
@@ -36,12 +44,12 @@ Tolerances:
 from __future__ import annotations
 
 import dataclasses
-import statistics
 
 import torch
 
 from hpmvs_tpu_torch.ops import fetch, gn, optimizer as popt, sampling, score
 from hpmvs_tpu_torch.ops import windows as win_ops
+from hpmvs_tpu_torch.timing import call_ms, time_ms
 
 KERNELS = {
     "fetch": ("hpmvs_tpu_torch/csrc/fetch.cu",
@@ -57,22 +65,6 @@ KERNELS = {
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 without tensor cores
 F32 = 4
-
-
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of fn() over reps launches (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def main_path_inputs(ctx, opt, center, normal, scale, views):
@@ -105,13 +97,15 @@ def main_path_inputs(ctx, opt, center, normal, scale, views):
 class KernelResult:
     name: str
     max_abs_err: float
-    ms: float
-    plain_ms: float
+    device_ms: float            # time_ms: the kernel alone on the device
+    call_ms: float              # call_ms: one call, host work included
+    plain_ms: float             # the twin, call_ms
     ok: bool
     detail: str
     bytes: float = 0.0          # bytes the function must move
     flops: float = 0.0          # float32 operations it does on these inputs
-    library_ms: float = None    # one PyTorch call computing the same, or None
+    library_ms: float = None    # one PyTorch call computing the same (device
+    library_call_ms: float = None   # time and call time), or None
     launch: dict = None         # gn.launch_info of the GN modes at this B
 
     @property
@@ -128,9 +122,11 @@ class KernelResult:
         src, rep = KERNELS[self.name]
         return {"name": self.name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": int(launches),
-                "max_abs_err": self.max_abs_err, "ms": self.ms,
+                "max_abs_err": self.max_abs_err, "ms": self.device_ms,
+                "device_ms": self.device_ms, "call_ms": self.call_ms,
                 "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
                 "bound_by": self.bound_by, "library_ms": self.library_ms,
+                "library_call_ms": self.library_call_ms,
                 "ok": self.ok, "detail": self.detail}
 
 
@@ -158,6 +154,17 @@ def flops_per_pass(K: int, grad: bool) -> float:
     return PATCH_GEOM_FLOPS + (200 if grad else 0) + K * view
 
 
+def both_ms(fn, reps: int):
+    """(device ms, call ms) of fn: time_ms over 2 * reps back-to-back calls
+    a run, call_ms over reps calls."""
+    return time_ms(fn, reps=2 * reps), call_ms(fn, reps)
+
+
+def _library(fn, reps: int) -> dict:
+    dev, call = both_ms(fn, reps)
+    return dict(library_ms=dev, library_call_ms=call)
+
+
 def _err(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
@@ -179,14 +186,14 @@ def check_kernels(ctx, opt, center, normal, scale, views, reps: int = 10):
     cj = (b1["ox"].long()[:, None] + ar)[:, None, :]         # (N, 1, W)
     tex = b1["tex"]
     n_live = int(live.sum())
+    n = b1["rows"].numel()
     out.append(KernelResult(
-        "fetch", e, time_ms(lambda: fetch.fetch_windows(**b1), reps),
-        time_ms(lambda: fetch.fetch_windows_twin(**b1), reps),
-        torch.equal(k, p), f"N={b1['rows'].numel()} ({n_live} live) W={W}, "
-                           f"exact",
+        "fetch", e, *both_ms(lambda: fetch.fetch_windows(**b1), reps),
+        call_ms(lambda: fetch.fetch_windows_twin(**b1), reps),
+        torch.equal(k, p), f"N={n} ({n_live} live) W={W}, exact",
         bytes=2 * n_live * W * W * 3 * F32 + nbytes(b1["rows"], b1["ox"],
                                                       live),
-        library_ms=time_ms(lambda: tex[ri, cj], reps)))
+        **_library(lambda: tex[ri, cj], reps)))
 
     kt, kc = score.sample_windows(b2["geom"], b2["win"], True)
     pt, pc = score.sample_windows_twin(b2["geom"], b2["win"], True)
@@ -196,9 +203,9 @@ def check_kernels(ctx, opt, center, normal, scale, views, reps: int = 10):
     ec = float(((kc - pc).abs() / pc.abs().clamp(min=1.0)).max())
     out.append(KernelResult(
         "score", e,
-        time_ms(lambda: score.sample_windows(b2["geom"], b2["win"], True),
-                reps),
-        time_ms(lambda: score.sample_windows_twin(b2["geom"], b2["win"],
+        *both_ms(lambda: score.sample_windows(b2["geom"], b2["win"], True),
+                 reps),
+        call_ms(lambda: score.sample_windows_twin(b2["geom"], b2["win"],
                                                   True), reps),
         e <= 2e-5 and ec <= 2e-5,
         f"B={B} K={K}: texture err {e:.3g} (tol 2e-5), colour relative "
@@ -212,12 +219,12 @@ def check_kernels(ctx, opt, center, normal, scale, views, reps: int = 10):
     wv = b3["win"].reshape(B, K, -1)
     oi = b3["order"].long()[:, :, None].expand(wv.shape)
     out.append(KernelResult(
-        "permute", _err(k, p), time_ms(lambda: score.permute_windows(**b3),
-                                       reps),
-        time_ms(lambda: score.permute_windows_twin(**b3), reps),
+        "permute", _err(k, p), *both_ms(lambda: score.permute_windows(**b3),
+                                        reps),
+        call_ms(lambda: score.permute_windows_twin(**b3), reps),
         torch.equal(k, p), f"B={B} K={K}, exact",
         bytes=nbytes(b3["win"], b3["order"], k),
-        library_ms=time_ms(lambda: torch.gather(wv, 1, oi), reps)))
+        **_library(lambda: torch.gather(wv, 1, oi), reps)))
 
     exact = dataclasses.replace(st, exact_j=True)
     fd = dataclasses.replace(st, exact_j=False)
@@ -268,12 +275,13 @@ def _check_gn(name, st, st0, args, reps):
     # B needs more clusters, the rest wait for a second wave
     nw = min(B, gn.NB * launch["max_active_clusters"])
     wave = {k: v[:nw] for k, v in args.items()}
-    wave_ms = time_ms(lambda: gn.gn_refine(st, **wave), reps)
+    wave_ms = time_ms(lambda: gn.gn_refine(st, **wave), reps=2 * reps)
     flops = gn.NB * (passes.get("value", 0) * flops_per_pass(K, False)
                           + passes.get("grad", 0) * flops_per_pass(K, True))
     return KernelResult(
-        name, float(df.max()), time_ms(lambda: gn.gn_refine(st, **args), reps),
-        time_ms(lambda: gn.gn_refine_twin(st, **args), reps),
+        name, float(df.max()), *both_ms(lambda: gn.gn_refine(st, **args),
+                                        reps),
+        call_ms(lambda: gn.gn_refine_twin(st, **args), reps),
         ok, f"B={B} K={K}: x and f bit-equal at x0 {eq0}, after the loop "
             f"{eq}; max errors: f at x0 {_err(kf0, pf0):.3g}, f "
             f"{float(df.max()):.3g}, centre {float(dc.max()):.3g}; the twin "
@@ -295,8 +303,8 @@ def _check_debug_j(st, args):
     launch = gn.launch_info(sd, B)
     return KernelResult(
         "gn_debug_j", max(_err(krho, prho), _err(kJ, pJ)),
-        time_ms(lambda: gn.gn_refine(sd, **args), 3),
-        time_ms(lambda: gn.gn_refine_twin(sd, **args), 3), ok,
+        *both_ms(lambda: gn.gn_refine(sd, **args), 3),
+        call_ms(lambda: gn.gn_refine_twin(sd, **args), 3), ok,
         f"B={B} K={st.K}: J, rho, f and x bit-equal {ok}; max errors: rho "
         f"{_err(krho, prho):.3g}, J {_err(kJ, pJ):.3g}, f {_err(kf, pf):.3g}; "
         f"max |J| {float(pJ.abs().max()):.3g}; launch {launch}",

@@ -29,16 +29,17 @@ def fetch_windows(tex, rows, ox, W: int, mask=None, prev=None):
         raise ValueError("tex: expected (rows, wmax, 3)")
     kernels.check(rows, "rows", torch.int32, (n,))
     kernels.check(ox, "ox", torch.int32, (n,))
-    m8 = None
     if mask is not None:
-        m8 = mask.to(torch.uint8).contiguous()
-        kernels.check(m8, "mask", torch.uint8, (n,))
+        # read in place as bytes (a bool is stored as one byte, 0 or 1): no
+        # conversion kernel ahead of the copy
+        mask = mask.contiguous()
+        kernels.check(mask, "mask", torch.bool, (n,))
     if prev is not None:
         kernels.check(prev, "prev", torch.float32, (n, W, W, 3))
     out = torch.empty((n, W, W, 3), dtype=torch.float32, device=tex.device)
     kernels.launch("hpmvs_fetch_windows", kernels.ptr(tex),
                    ctypes.c_int(tex.shape[1]), kernels.ptr(rows),
-                   kernels.ptr(ox), kernels.ptr(m8), kernels.ptr(prev),
+                   kernels.ptr(ox), kernels.ptr(mask), kernels.ptr(prev),
                    kernels.ptr(out), ctypes.c_int(n), ctypes.c_int(W))
     kernels.STATS["fetch"].launches += 1
     return out

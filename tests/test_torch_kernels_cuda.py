@@ -64,3 +64,67 @@ def test_gn_is_bit_equal_and_fills_the_card(results, name):
     assert info["ctas"] > 16 and info["ctas"] == 2048 // 16, info
     assert info["ctas_per_cluster"] == 8 and info["threads_per_cta"] == 512
     assert info["local_bytes"] <= 32, info
+
+
+def test_times_are_device_and_call(results):
+    """Every kernel and yardstick carries both times: device_ms from a
+    backed-up stream, call_ms from one call with its host work."""
+    for r in results.values():
+        assert 0.0 < r.device_ms < float("inf"), r
+        assert 0.0 < r.call_ms < float("inf"), r
+        if r.library_ms is not None:
+            assert r.library_ms > 0.0 and r.library_call_ms > 0.0, r
+
+
+def test_copies_exact_and_score_within_tolerance(results):
+    assert results["fetch"].max_abs_err == 0.0, results["fetch"].detail
+    assert results["permute"].max_abs_err == 0.0, results["permute"].detail
+    assert results["score"].max_abs_err <= 2e-5, results["score"].detail
+
+
+@pytest.mark.parametrize("W", [12, 10])
+def test_fetch_paths_match_twin(results, W):
+    """The fetch kernel against its twin off the main path's inputs, its
+    bool mask read in place, with dead pairs taking zeros and then prev's
+    window: W=12, and W=10 (rows of 3W floats not a multiple of 16 bytes)."""
+    from hpmvs_tpu_torch.ops import fetch
+    g = torch.Generator(device="cuda").manual_seed(W)
+    R, wmax, n = 700, 512, 5000
+    tex = torch.rand((R, wmax, 3), device="cuda", generator=g) * 255
+    rows = torch.randint(0, R - W + 1, (n,), device="cuda", generator=g,
+                         dtype=torch.int32)
+    ox = torch.randint(0, wmax - W + 1, (n,), device="cuda", generator=g,
+                       dtype=torch.int32)
+    mask = torch.rand((n,), device="cuda", generator=g) > 0.2
+    prev = torch.rand((n, W, W, 3), device="cuda", generator=g)
+    for pv in (None, prev):
+        k = fetch.fetch_windows(tex, rows, ox, W, mask=mask, prev=pv)
+        p = fetch.fetch_windows_twin(tex, rows, ox, W, mask=mask, prev=pv)
+        assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("W,offset", [(12, 0), (11, 0), (12, 1), (40, 0),
+                                      (40, 1)])
+def test_score_paths_match_twin(results, W, offset):
+    """The score kernel against its twin off the main path's shapes: odd W
+    (windows of 12 W^2 bytes, not a multiple of 16), a geometry tensor 4
+    bytes off a 16-byte boundary, and W=40. The windows are smooth (as
+    images are at the scale of a patch), so a coordinate rounded once more
+    in the twin moves a sample by far less than the tolerance."""
+    from hpmvs_tpu_torch.ops import score
+    g = torch.Generator(device="cuda").manual_seed(W + offset)
+    B, K = 129, 7
+    ph = torch.rand((B, K, 1, 1, 3), device="cuda", generator=g) * 6.28
+    ar = torch.arange(W, device="cuda", dtype=torch.float32)
+    yx = 0.2 * ar[:, None, None] + 0.3 * ar[None, :, None]     # (W, W, 1)
+    win = (128 + 100 * torch.sin(yx + ph)).contiguous()
+    geo = torch.rand((B, K, 6), device="cuda", generator=g)
+    geo[..., :2] *= W - 8
+    geo[..., 2:] = geo[..., 2:] * 0.6 + 0.5
+    flat = torch.empty(geo.numel() + 1, device="cuda")
+    geom = flat[offset:offset + geo.numel()].view(B, K, 6)
+    geom.copy_(geo)
+    kt, kc = score.sample_windows(geom, win, True)
+    pt, pc = score.sample_windows_twin(geom, win, True)
+    assert float((kt - pt).abs().max()) <= 2e-5
+    assert float(((kc - pc).abs() / pc.abs().clamp(min=1.0)).max()) <= 2e-5

@@ -101,6 +101,32 @@ def test_fetch_twin_contract():
         assert torch.equal(out[n], want)
 
 
+@pytest.mark.parametrize("W", [7, 10, 16])
+@pytest.mark.parametrize("with_prev", [False, True])
+def test_fetch_twin_any_width(W, with_prev):
+    """The twin contract the CUDA kernel is held to at every W it takes: a
+    bool mask (the kernel reads its bytes in place), unread pairs zero
+    without prev and prev's window with it, windows touching the pyramid's
+    last row and column."""
+    rng = np.random.default_rng(W)
+    R, wmax, n = 3 * W, 2 * W + 5, 17
+    tex = torch.as_tensor(rng.random((R, wmax, 3)).astype(np.float32) * 255)
+    rows = torch.as_tensor(rng.integers(0, R - W + 1, n).astype(np.int32))
+    ox = torch.as_tensor(rng.integers(0, wmax - W + 1, n).astype(np.int32))
+    rows[0], ox[0] = R - W, wmax - W
+    mask = torch.as_tensor(rng.random(n) < 0.6)
+    mask[0] = True
+    prev = torch.full((n, W, W, 3), -3.0) if with_prev else None
+    out = fetch.fetch_windows(tex, rows, ox, W, mask=mask, prev=prev)
+    assert out.shape == (n, W, W, 3) and out.dtype == torch.float32
+    for i in range(n):
+        if mask[i]:
+            want = tex[rows[i]:rows[i] + W, ox[i]:ox[i] + W]
+        else:
+            want = prev[i] if with_prev else torch.zeros((W, W, 3))
+        assert torch.equal(out[i], want)
+
+
 @pytest.mark.parametrize("mode", ["take_along_axis", "interpret"])
 def test_permute_matches_jax(setup, mode):
     opt, sc, ctx, c, s, views = setup
