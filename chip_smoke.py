@@ -6,7 +6,8 @@ Phases, each printing one JSON line:
   1. device   -- the card (torch and nvidia-smi); no CUDA -> exit 1.
   2. build    -- nvcc builds hpmvs_tpu_torch/csrc into build/ (one nvcc per
                  source, in parallel); the ptxas report of every kernel
-                 (registers, static shared memory, stack, spills).
+                 (registers, static shared memory, stack, spills); then g++
+                 builds the native octree library (native/octree_core.cpp).
   3. kernels  -- each kernel (fetch, score, permute, gn, gn_fd) and the GN
                  kernel's debug_j output against its plain PyTorch twin on
                  the card at the main path's shapes (B=2048, K=8 pre stage,
@@ -22,37 +23,60 @@ Phases, each printing one JSON line:
                  optimize_batch of the 2048 patches on the default path,
                  with LM_EXACT_J=False, and with FAST_SETREF=False and
                  LM_EXACT_J=False (call time, median of 10).
-  4. plane    -- bench.py's plane scene and Options through
+  4. deep_dispatch -- one deepwave.optimize_and_gate_deep of WAVE_DEPTH=4
+                 generations at B=2048 on the plane's seed extend batch,
+                 enqueued under torch.cuda.set_sync_debug_mode("error"): no
+                 generation may wait for the device; its generation 0
+                 equal (torch.equal) to one classic optimize_and_gate call.
+                 Its call time (the enqueue and one copy back) and its
+                 device time and launches (torch.profiler) beside those of
+                 4 classic optimize_and_gate calls, each copied back; every
+                 call on its own copy of the z-buffer.
+  5. plane    -- bench.py's plane scene and Options at the JAX package's
+                 defaults (wave lookahead, deep waves, pooled depth gates,
+                 native octree queries) through
                  hpmvs_tpu_torch.runtime.pipeline.run to completion: fetch,
-                 score, permute and gn launched, no twin called, >= 0.95 of
-                 the patches within 0.02 of the plane, alive count within
-                 10% of the JAX engine's on the CPU for the same Options.
-  5. plane_exactref_fd -- the same with FAST_SETREF=False, LM_EXACT_J=False
+                 score, permute and gn launched, no twin called, the native
+                 octree answering, deep generations consumed, lookahead
+                 hits > misses, >= 0.95 of the patches within 0.02 of the
+                 plane, alive count within 10% of the JAX engine's on the
+                 CPU at its defaults.
+  6. plane_classic -- the same with WAVE_DEPTH=1, WAVE_LOOKAHEAD=False,
+                 against the JAX engine's classic count.
+  7. plane_exactref_fd -- the plane with FAST_SETREF=False, LM_EXACT_J=False
                  (the reference's setRefImage on the per-patch stages, the
-                 GN kernel's FD/Broyden mode): fetch and gn_fd launched, no
-                 twin called, >= 0.95 within 0.02, alive count within 10% of
-                 the JAX engine's on the path it takes on a TPU (its GN
-                 kernel in interpret mode on the CPU; the JAX engine's own
-                 CPU path refines with another FD algorithm and is reported
-                 beside it).
-  6. facade   -- an 11-camera 2048 px facade (Strecha fountain-P11 sized),
-                 rendered once, under a wall budget: the first octree level
-                 must finish with >= 0.85 of the patches within 0.02 of the
-                 surface.
-  7. facade_exactref_fd -- the same facade with FAST_SETREF=False and
+                 GN kernel's FD/Broyden mode), wave switches at their
+                 defaults: fetch and gn_fd launched, no twin called, >= 0.95
+                 within 0.02, alive count within 10% of the JAX engine's on
+                 the path it takes on a TPU (its GN kernel in interpret mode
+                 on the CPU; the JAX engine's own CPU path refines with
+                 another FD algorithm and is reported beside it).
+  8. facade   -- an 11-camera 2048 px facade (Strecha fountain-P11 sized),
+                 rendered once, under a wall budget, at the defaults: the
+                 first octree level must finish with >= 0.85 of the patches
+                 within 0.02 of the surface.
+  9. facade_exactref_fd -- the same facade with FAST_SETREF=False and
                  LM_EXACT_J=False, under its own wall budget, same checks.
 Any failed check raises (exit code 1). The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels (ms is
-device_ms; call_ms beside it).
+device_ms; call_ms beside it; launches from the plane at the defaults, gn_fd
+from plane_exactref_fd).
 
 python3 chip_smoke.py --profile instead builds the kernels and runs the
-plane twice on the default path, the second time under torch.profiler
-(device activity only), and prints the device's busy time by kernel, the
-GN kernel's share of it, and the idle share of the unprofiled run's wall;
-then the exactref_fd plane under the profiler. For each path it lists every
-hand-written kernel's device time and launches in that plane run.
+plane at the defaults and on the classic engine in turns (default, classic,
+classic, default; loop wall, dispatches, wave counters, peak memory), then
+each under torch.profiler (device activity only): busy time by kernel, the
+GN kernel's share, the advanced-indexing gathers' device time, and the idle
+share of the unprofiled runs' mean wall; the classic plane once more with
+the depth gates' 9-gather path (no pooled gates) for the gathers' time
+before the pooled gates; then the exactref_fd plane. For each profiled run,
+every hand-written kernel's device time and launches.
+
+python3 chip_smoke.py --facade-waves builds the kernels and runs the facade
+on the classic engine, then at the defaults (the facade phase's checks).
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -63,26 +87,39 @@ import time
 
 T0 = time.time()
 TIME_LIMIT_S = 1200.0
-# hpmvs_tpu (JAX engine on the CPU, WAVE_DEPTH=1, WAVE_LOOKAHEAD=False) on
-# bench.py's plane scene and Options: 16186 alive patches, all at octree
-# level 7, 49516 patches optimized.
-PLANE_JAX_CPU_ALIVE = 16186
+# hpmvs_tpu (JAX engine on the CPU) on bench.py's plane scene and Options,
+# measured by tools/plane_reference.py. At its defaults (WAVE_DEPTH=4,
+# WAVE_LOOKAHEAD=True): 15761 alive patches, all at octree level 7, 1.000
+# within 0.02, 51116 patches optimized.
+PLANE_JAX_CPU_ALIVE = 15761
+# the classic engine (WAVE_DEPTH=1, WAVE_LOOKAHEAD=False): 16186 alive, all
+# at octree level 7, 49516 patches optimized.
+CLASSIC = dict(WAVE_DEPTH=1, WAVE_LOOKAHEAD=False)
+PLANE_CLASSIC_JAX_CPU_ALIVE = 16186
 EXACTREF_FD = dict(FAST_SETREF=False, LM_EXACT_J=False)
-# the same with EXACTREF_FD, measured by tools/plane_reference.py: on the
-# path the JAX engine takes on a TPU (its GN kernel's FD mode, run on the
-# CPU in interpret mode) 18700 alive patches, 0.9988 within 0.02 -- the
-# algorithm the port runs. On the CPU the JAX engine refines with its plain
-# FD refiner instead (no early stop, no FD-step shrink): 16123 alive.
-PLANE_EXACTREF_FD_ALIVE = 18700
-PLANE_EXACTREF_FD_JAX_CPU_ALIVE = 16123
+# EXACTREF_FD at the wave defaults: on the path the JAX engine takes on a
+# TPU (its GN kernel's FD mode, run on the CPU in interpret mode, --kernel)
+# 18261 alive patches, all at octree level 7, 0.9990 within 0.02 -- the
+# algorithm the port runs. On the CPU the JAX engine refines with its
+# plain FD refiner instead (no early stop, no FD-step shrink): 15727 alive,
+# 0.9994 within 0.02.
+PLANE_EXACTREF_FD_ALIVE = 18261
+PLANE_EXACTREF_FD_JAX_CPU_ALIVE = 15727
 FACADE_MAX_TREE_LEVEL = 9          # of the default-path facade
 FACADE_BUDGET_S = 420.0
 FACADE_EXACTREF_FD_BUDGET_S = 420.0
 OUT_DIR = "chiprun_out"
 # which kernels each driven path must launch
 PATH_KERNELS = {"default": ("fetch", "score", "permute", "gn"),
+                "classic": ("fetch", "score", "permute", "gn"),
                 "exactref_fd": ("fetch", "gn_fd")}
-PATH_SWITCHES = {"default": {}, "exactref_fd": EXACTREF_FD}
+PATH_SWITCHES = {"default": {}, "classic": CLASSIC,
+                 "exactref_fd": EXACTREF_FD}
+# the engine's counters each plane and facade phase reports
+WAVE_STATS = ("dispatches", "lookahead_hits", "lookahead_misses",
+              "spec_waste_lanes", "spec_dropped_lanes", "disp_deep",
+              "deep_gens_consumed", "deep_fallbacks", "deep_fb_overflow",
+              "deep_fb_mismatch", "deep_fb_dead", "deep_false_winner_repairs")
 
 
 def emit(phase, **kw):
@@ -117,6 +154,11 @@ def build_phase():
         fh.write(kernels._Lib.build_log)
     emit("build", seconds=round(time.time() - t, 3), library=str(path),
          ptxas=ptxas_report(kernels._Lib.build_log))
+    from hpmvs_tpu_torch.core import native
+    t = time.time()
+    native.lib()
+    emit("build_native", seconds=round(time.time() - t, 3),
+         library=str(native._Lib.path))
 
 
 MODES = {"0": "exact", "1": "fd", "2": "debug_j"}
@@ -190,6 +232,132 @@ def kernels_phase(device):
     return res
 
 
+def profiled(fn):
+    """One fn() under torch.profiler with device activity only: (its
+    result, {kernel: device us}, {kernel: launches}). The device times sum
+    to the busy time (one stream)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    us, calls = {}, {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0:
+            us[e.key] = us.get(e.key, 0.0) + t
+            calls[e.key] = calls.get(e.key, 0) + e.count
+    return res, us, calls
+
+
+def deep_phase(device):
+    """One deep dispatch on the plane's seed extend batch (the extend
+    candidates of every seed cell, cut or padded to B=2048 as
+    Engine._deep_dispatch pads): enqueued with no host sync, its generation
+    0 equal to one classic optimize_and_gate call, then timed against
+    WAVE_DEPTH classic calls. Every call gets its own copy of the z-buffer
+    (made before the timed region), since a deep call adds its generation
+    0's winners to it."""
+    import numpy as np
+    import torch
+    from hpmvs_tpu_torch import kernel_check
+    from hpmvs_tpu_torch.core import depth as depth_mod
+    from hpmvs_tpu_torch.ops import deepwave
+    from hpmvs_tpu_torch.ops import optimizer as popt
+    from hpmvs_tpu_torch.runtime.wavefront import Engine
+    opt, ps, _, _ = plane_setup(device)
+    eng = Engine(ps.model, opt, images=ps.images, device=device)
+    eng.seed()
+    cids = np.concatenate([eng._pop_live(p) for p in sorted(eng.queue)])
+    pids = eng.cell_head[cids]
+    _, widths = eng.tree.cell_center_width(cids)
+    lanes = eng._extend_candidates(
+        eng.patches.center[pids], eng.patches.normal[pids],
+        eng.patches.views[pids], eng.patches.prio_red[pids], widths,
+        eng.tree.node_level(cids))[:6]
+    B = 2048
+    n = min(len(lanes[0]), B)
+    gin = deepwave.GateIn(*(torch.as_tensor(a, device=device) for a in
+                            deepwave.pad_lanes([a[:n] for a in lanes], B)))
+    root_c = torch.as_tensor(np.asarray(eng.tree.center, np.float32),
+                             device=device)
+    root_w = torch.full((), eng.tree.width, dtype=torch.float32,
+                        device=device)
+    ctx, n_img, lay = eng.scene.ctx, eng.scene.n_cameras, eng._pack_layout
+    base = eng.pack
+    depth_mod.apply_phased_updates(base, ctx.cams, *eng._take_pending(),
+                                   subsample=opt.DEPTH_SUBSAMPLE)
+    gens = int(opt.WAVE_DEPTH)
+
+    def fresh(k=1):
+        """k copies of the z-buffer as the wave finds it."""
+        packs = [dataclasses.replace(base, depth=base.depth.clone())
+                 for _ in range(k)]
+        torch.cuda.synchronize()
+        return packs
+
+    def deep(pack):
+        return deepwave.optimize_and_gate_deep(
+            ctx, pack, opt, n_img, gin, root_c, root_w, n_gens=gens,
+            pack_layout=lay)
+
+    def classic(pack):
+        for _ in range(gens):
+            for a in popt.optimize_and_gate(ctx, pack, opt, n_img, *gin,
+                                            pack_layout=lay):
+                a.cpu()
+
+    def call(fn, reps=5, warmup=2):
+        packs = fresh(reps + warmup)
+        return kernel_check.call_ms(lambda: fn(packs.pop()), reps=reps,
+                                    warmup=warmup)
+
+    deep(*fresh())                          # warm-up: lazy library set-up
+    pack0, pack_ref = fresh(2)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        out = deep(pack0)
+        enqueue_ms = 1e3 * (time.perf_counter() - t)
+    except RuntimeError as e:
+        check(False, f"deep_dispatch: the enqueue waited for the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # generation 0 is one classic call on the same z-buffer, bit for bit
+    ref = popt.optimize_and_gate(ctx, pack_ref, opt, n_img, *gin,
+                                 pack_layout=lay)
+    gen0_diff = {name: float((a[0].float() - b.float()).abs().max())
+                 for name, a, b in zip(deepwave.DeepOut._fields, out, ref)
+                 if not torch.equal(a[0], b)}
+    host = deepwave.to_host(out)
+    ok = [int(host.ok[g].sum()) for g in range(gens)]
+    win = [int(host.win[g].sum()) for g in range(gens)]
+    call_deep = call(lambda p: deepwave.to_host(deep(p)))
+    call_classic = call(classic)
+    # device time and launches of one call from the profiler: a deep call
+    # launches more kernels than the launch queue holds, so time_ms cannot
+    # back the stream up behind it
+    dev = {}
+    for name, fn in (("deep", deep), ("classic", classic)):
+        p = fresh()[0]
+        _, us, calls = profiled(lambda: fn(p))
+        dev[name] = (sum(us.values()) / 1e3, sum(calls.values()))
+    emit("deep_dispatch", B=B, lanes=n, n_gens=gens, syncs=0,
+         enqueue_ms=enqueue_ms, call_ms=call_deep, device_ms=dev["deep"][0],
+         device_launches=dev["deep"][1], classic_calls=gens,
+         classic_call_ms=call_classic, classic_device_ms=dev["classic"][0],
+         classic_device_launches=dev["classic"][1],
+         gen0_equals_classic=not gen0_diff, gen0_max_abs_diff=gen0_diff,
+         ok_per_gen=ok, winners_per_gen=win)
+    check(not gen0_diff, f"deep_dispatch: generation 0 differs from one "
+                         f"classic call: {gen0_diff}")
+    check(ok[0] > 0 and win[0] > 0 and ok[1] > 0,
+          f"deep_dispatch: no work past generation 0: ok {ok}, winners {win}")
+    del eng
+
+
 def launch_counts():
     from hpmvs_tpu_torch import kernels
     return ({k: st.launches for k, st in kernels.STATS.items()},
@@ -204,7 +372,14 @@ def check_path(name, path, launches, twins):
     check(not any(twins.values()), f"{name}: a twin ran: {twins}")
 
 
-def plane_phase(device, name, path, ref_alive):
+def wave_stats(eng):
+    st = eng.stats
+    return dict({k: int(st[k]) for k in WAVE_STATS},
+                t_host_overlapped=float(st["t_host_overlapped"]),
+                octree_native=bool(st["octree_native"]))
+
+
+def plane_phase(device, name, path, ref_alive, jax_cpu_alive):
     import numpy as np
     import torch
     from hpmvs_tpu_torch import kernels
@@ -224,19 +399,25 @@ def plane_phase(device, name, path, ref_alive):
     c = eng.alive_arrays()[0]
     frac = float((np.abs(c[:, 2] - ps.plane_z) < 0.02).mean())
     n_opt = int(eng.stats["patches_optimized"])
+    ws = wave_stats(eng)
     emit(name, switches=switches, wall_s=wall, alive=eng.n_alive(),
-         reference_alive=ref_alive,
-         jax_cpu_alive=(PLANE_JAX_CPU_ALIVE if not switches
-                        else PLANE_EXACTREF_FD_JAX_CPU_ALIVE),
+         reference_alive=ref_alive, jax_cpu_alive=jax_cpu_alive,
          frac_within_002=frac,
          patches_optimized=n_opt, patches_per_s=n_opt / wall,
          loop_s=float(eng.stats["proc_time"]),
          loop_patches_per_s=n_opt / max(float(eng.stats["proc_time"]), 1e-9),
-         dispatches=int(eng.stats["dispatches"]),
          hist=[int(x) for x in eng.tree.histogram()],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches, twin_calls=twins)
+         launches=launches, twin_calls=twins, **ws)
     check_path(name, path, launches, twins)
+    check(ws["octree_native"], f"{name}: the octree queries ran in numpy")
+    if eng.opt.WAVE_LOOKAHEAD:
+        check(ws["lookahead_hits"] > ws["lookahead_misses"],
+              f"{name}: lookahead hits {ws['lookahead_hits']} <= misses "
+              f"{ws['lookahead_misses']}")
+    if eng.opt.WAVE_LOOKAHEAD and eng.opt.WAVE_DEPTH > 1:
+        check(ws["disp_deep"] > 0 and ws["deep_gens_consumed"] > 0,
+              f"{name}: deep waves did not engage: {ws}")
     check(frac >= 0.95, f"{name}: {frac} of patches within 0.02")
     check(abs(eng.n_alive() - ref_alive) <= 0.1 * ref_alive,
           f"{name}: {eng.n_alive()} alive vs {ref_alive} (JAX)")
@@ -302,7 +483,7 @@ def facade_phase(device, sc, name, path, max_tree_level, budget):
          image_pack_mb=image_pack_mb,
          depth_pack_mb=eng.pack.depth.numel() * 4 / 2 ** 20,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches, twin_calls=twins)
+         launches=launches, twin_calls=twins, **wave_stats(eng))
     check(first_level_done, f"{name}: the first octree level did not finish")
     check(frac >= 0.85, f"{name}: {frac} of patches within 0.02")
     check_path(name, path, launches, twins)
@@ -310,24 +491,29 @@ def facade_phase(device, sc, name, path, max_tree_level, budget):
 
 
 # csrc kernel function -> kernel name (gn_refine_kernel is the exact mode on
-# the default path and the FD/Broyden mode on exactref_fd)
+# the default paths and the FD/Broyden mode on exactref_fd)
 PROFILE_KERNELS = {"fetch_windows_kernel": "fetch",
                    "sample_views_kernel": "score",
                    "permute_windows_kernel": "permute",
-                   "gn_refine_kernel": {"default": "gn", "exactref_fd": "gn_fd"}}
+                   "gn_refine_kernel": {"exactref_fd": "gn_fd"}}
+# torch's advanced-indexing gathers (t[idx]) as the profiler names them
+GATHER_KERNELS = ("index_elementwise_kernel", "vectorized_gather_kernel")
 
 
 def profile_phase(device):
-    """The default plane, run once to warm up and time, then again under
+    """The plane at the defaults and on the classic engine, unprofiled in
+    turns (default, classic, classic, default), then each under
     torch.profiler with device activity only: device busy time (the sum of
-    kernel times; one stream), the GN kernel's share of it, the top
-    kernels, and the idle share of the unprofiled wall. Then the
-    exactref_fd plane under the profiler. For each path, every hand-written
-    kernel's device time and launches in the run (profiler) beside its
-    wrapper's launch count."""
+    kernel times; one stream), the GN kernel's share of it, the gathers'
+    device time, the top kernels, and the idle share of the path's mean
+    unprofiled wall. Then the classic plane with the 9-gather depth gates
+    (pool_full_depth switched off) and the exactref_fd plane, profiled. For
+    each profiled run, every hand-written kernel's device time and launches
+    in the run (profiler) beside its wrapper's launch count."""
+    from unittest import mock
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from hpmvs_tpu_torch import kernels
+    from hpmvs_tpu_torch.core import depth as depth_mod
     from hpmvs_tpu_torch.runtime import pipeline
     opt, ps, _, _ = plane_setup(device)
 
@@ -336,40 +522,67 @@ def profile_phase(device):
                                 OUTFOLDER=os.path.join(OUT_DIR,
                                                        f"profile_{path}"))
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
         t = time.time()
-        pipeline.run(ps.model, o, images=ps.images, device=device)
+        eng = pipeline.run(ps.model, o, images=ps.images, device=device)
         torch.cuda.synchronize()
-        return time.time() - t
+        return time.time() - t, eng
 
-    wall = run("default")
-    for path in ("default", "exactref_fd"):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            wall_prof = run(path)
+    walls = {"default": [], "classic": []}
+    for path in ("default", "classic", "classic", "default"):
+        wall, eng = run(path)
+        walls[path].append(wall)
+        n_opt = int(eng.stats["patches_optimized"])
+        loop = float(eng.stats["proc_time"])
+        emit("plane_run", path=path, wall_s=wall, loop_s=loop,
+             alive=eng.n_alive(), patches_optimized=n_opt,
+             loop_patches_per_s=n_opt / max(loop, 1e-9),
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             **wave_stats(eng))
+    runs = (("default", "default", contextlib.nullcontext()),
+            ("classic", "classic", contextlib.nullcontext()),
+            ("classic_nine_gathers", "classic",
+             mock.patch.object(depth_mod, "pool_full_depth",
+                               lambda full0: None)),
+            ("exactref_fd", "exactref_fd", contextlib.nullcontext()))
+    for label, path, patch in runs:
+        with patch:
+            (wall_prof, _), us, calls = profiled(lambda: run(path))
         launches, _ = launch_counts()
-        us, calls = {}, {}
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0.0))
-            if t > 0:
-                us[e.key] = us.get(e.key, 0.0) + t
-                calls[e.key] = calls.get(e.key, 0) + e.count
         busy = sum(us.values()) / 1e6
         gn_s = sum(v for k, v in us.items() if "gn_refine_kernel" in k) / 1e6
-        top = sorted(us.items(), key=lambda kv: -kv[1])[:8]
+        gk = [k for k in us if any(g in k for g in GATHER_KERNELS)]
+        top = sorted(us.items(), key=lambda kv: -kv[1])[:10]
         hand = {}
         for fn, name in PROFILE_KERNELS.items():
-            name = name[path] if isinstance(name, dict) else name
+            if isinstance(name, dict):
+                name = name.get(path, "gn")
             keys = [k for k in us if fn in k]
             hand[name] = {"device_ms": sum(us[k] for k in keys) / 1e3,
                           "kernel_launches": sum(calls[k] for k in keys),
                           "wrapper_launches": launches[name]}
-        extra = (dict(wall_s=wall, idle_share=(1.0 - busy / wall)
-                      if busy else None) if path == "default" else {})
-        emit("profile", path=path, profiled_wall_s=wall_prof,
-             device_busy_s=busy, gn_s=gn_s,
-             gn_share=gn_s / busy if busy else None, hand_written=hand,
+        extra = {}
+        if label in walls:
+            wall = sum(walls[label]) / len(walls[label])
+            extra = dict(mean_unprofiled_wall_s=wall,
+                         idle_share=(1.0 - busy / wall) if busy else None)
+        emit("profile", path=label, switches=PATH_SWITCHES[path],
+             profiled_wall_s=wall_prof, device_busy_s=busy, gn_s=gn_s,
+             gn_share=gn_s / busy if busy else None,
+             gathers_s=sum(us[k] for k in gk) / 1e6,
+             gather_launches=sum(calls[k] for k in gk), hand_written=hand,
              top=[{"kernel": k[:90], "s": v / 1e6} for k, v in top], **extra)
+
+
+def facade_waves_phase(device):
+    """The facade on the classic engine, then at the defaults (the wave
+    defaults' study: loop wall, alive, accuracy, wave counters)."""
+    sc = render_facade()
+    facade_phase(device, sc, "facade_classic", "classic",
+                 FACADE_MAX_TREE_LEVEL, FACADE_BUDGET_S)
+    facade_phase(device, sc, "facade", "default", FACADE_MAX_TREE_LEVEL,
+                 FACADE_BUDGET_S)
 
 
 def main():
@@ -379,11 +592,16 @@ def main():
     device = "cuda"
     build_phase()
     res = kernels_phase(device)
+    deep_phase(device)
     path_launches = {
         "default": plane_phase(device, "plane", "default",
-                               PLANE_JAX_CPU_ALIVE),
+                               PLANE_JAX_CPU_ALIVE, PLANE_JAX_CPU_ALIVE),
+        "classic": plane_phase(device, "plane_classic", "classic",
+                               PLANE_CLASSIC_JAX_CPU_ALIVE,
+                               PLANE_CLASSIC_JAX_CPU_ALIVE),
         "exactref_fd": plane_phase(device, "plane_exactref_fd", "exactref_fd",
-                                   PLANE_EXACTREF_FD_ALIVE)}
+                                   PLANE_EXACTREF_FD_ALIVE,
+                                   PLANE_EXACTREF_FD_JAX_CPU_ALIVE)}
     sc = render_facade()
     facade_phase(device, sc, "facade", "default", FACADE_MAX_TREE_LEVEL,
                  FACADE_BUDGET_S)
@@ -419,5 +637,9 @@ if __name__ == "__main__":
         device_phase()
         build_phase()
         profile_phase("cuda")
+    elif sys.argv[1:] == ["--facade-waves"]:
+        device_phase()
+        build_phase()
+        facade_waves_phase("cuda")
     else:
         main()

@@ -11,9 +11,8 @@ Engine knobs (batch shapes, view-slot count, LM iterations) are new: the
 reference optimizes one patch at a time with nlopt BOBYQA; we optimize
 thousands per step with a batched damped-Newton refiner.
 
-Same fields and defaults as hpmvs_tpu.config.Options, except WAVE_DEPTH=1
-and WAVE_LOOKAHEAD=False: deep waves and wave lookahead are not ported, and
-the engine raises NotImplementedError when either is switched on.
+Same fields and defaults as hpmvs_tpu.config.Options (tests/test_torch_host.py
+holds them equal), wave lookahead and deep waves included.
 """
 
 from __future__ import annotations
@@ -117,10 +116,18 @@ class Options:
     EXTEND_SUBROUNDS: int = 1  # split each level's extend batch into R
                                # sequential sub-rounds with depth-buffer
                                # updates between them; 1 = one batch
-    WAVE_LOOKAHEAD: bool = False  # JAX package: speculative next-wave
-                               # dispatch; not ported (must stay False)
-    WAVE_DEPTH: int = 1        # JAX package: waves per fused dispatch
-                               # (ops/deepwave.py); not ported (must stay 1)
+    WAVE_LOOKAHEAD: bool = True  # dispatch wave N+1's extend batch (a
+                               # deterministic function of wave N's fetched
+                               # gate output and the current tree) BEFORE
+                               # routing wave N, so host routing overlaps
+                               # the device; removal-phase subtracts lag
+                               # one dispatch (runtime/wavefront.py)
+    WAVE_DEPTH: int = 4        # extend waves per deep dispatch
+                               # (ops/deepwave.py): the device simulates the
+                               # router between them, so the host waits for
+                               # the device once per WAVE_DEPTH dependent
+                               # waves; 1 = one wave per dispatch. Waves
+                               # larger than BATCH take the chunked path
     DTYPE: str = "float32"
     BLOCK_OVERSUB: int = 8     # JAX package spatial mode (not ported)
     REBALANCE_BELOW: float = 0.75  # JAX package image subsets (not ported)

@@ -18,7 +18,9 @@ batched Tensor.scatter_reduce_ ("amin"/"amax") over (B patches x K views),
 applied in place (the engine owns the one buffer). The 3x3 tests are written
 in the difference form of the reference (|full_depth - d| against the
 tolerance, per neighbour) and read the collapsed full-depth buffer when every
-camera shares the pyramid dims.
+camera shares the pyramid dims; with DEPTH_SUBSAMPLE=2 they read its 2x2
+pools instead (pool_full_depth: 2 gathers per (lane, image) instead of 9),
+in the same difference form and bitwise equal to the 9-gather path.
 """
 
 from __future__ import annotations
@@ -105,7 +107,8 @@ def apply_phased_updates(pack: DepthPack, cams, centers, scales, views,
     idx = idx.reshape(-1).long()
     d = d.reshape(-1)
     K = views.shape[1]
-    ph = torch.repeat_interleave(phase, K)
+    # (expand, not repeat_interleave: its output size can cost a host sync)
+    ph = phase[:, None].expand(-1, K).reshape(-1)
     valid = valid.reshape(-1)
     depth = pack.depth
     inf = torch.full_like(d, float("inf"))
@@ -198,7 +201,8 @@ def collapse_full_depth(depth, layout, ncam: int):
         alive = alive & (ys < h * f) & (xs < w * f)
         if h > 0 and w > 0:
             slab = d2[:, pre:pre + h * w].reshape(ncam, h, w)
-            up = slab.repeat_interleave(f, dim=1).repeat_interleave(f, dim=2)
+            up = slab[:, :, None, :, None].expand(ncam, h, f, w, f).reshape(
+                ncam, h * f, w * f)
             uh, uw = min(h0, h * f), min(w0, w * f)
             up = up[:, :uh, :uw]
             if uh < h0 or uw < w0:
@@ -207,6 +211,74 @@ def collapse_full_depth(depth, layout, ncam: int):
                                                  torch.full_like(up, MAX_DEPTH)))
         pre += h * w
     return acc
+
+
+def pool_full_depth(full0):
+    """2x2 forward-window pools of the collapsed full-depth buffer, for
+    DEPTH_SUBSAMPLE=2 (the reference constant, Scene.h:74): the 3x3
+    full-resolution neighbourhood of Scene::depthTest (Scene.cpp:534-556)
+    projects onto exactly the subsampled cells {ix0//2, ix0//2+1} x
+    {iy0//2, iy0//2+1} for every alignment of ix0 >= 0, so the 9 gathers
+    per (lane, image) become 2 gathers of pooled values.
+
+    Returns (nm_min, nm_max, raw_max), each (ncam, h0, w0): min and max over
+    the window of the non-empty cells (+inf / -inf when all are empty), and
+    the raw max (>= MAX_DEPTH iff a cell is empty). Cells past the buffer's
+    edge count as empty (padding with MAX_DEPTH), as out-of-range cells do
+    in the 9-gather path."""
+    v = F.pad(full0, (0, 1, 0, 1), value=MAX_DEPTH)
+    inf = torch.full_like(v, float("inf"))
+    filled = v < MAX_DEPTH
+    vm = torch.where(filled, v, inf)
+    vM = torch.where(filled, v, -inf)
+    h0, w0 = full0.shape[1], full0.shape[2]
+
+    def pool2(a, red):
+        b = red(a[:, :h0, :], a[:, 1:h0 + 1, :])
+        return red(b[:, :, :w0], b[:, :, 1:w0 + 1])
+
+    return (pool2(vm, torch.minimum), pool2(vM, torch.maximum),
+            pool2(v, torch.maximum))
+
+
+def _depth_test_view_pooled(cams, imgs, centers, normals, scales, ci, margin,
+                            view_block: bool, pool3):
+    """Scene::depthTest from one pooled cell per (lane, image) (see
+    pool_full_depth), in the difference form of _depth_test_at. Subtracting
+    one d is monotone in float arithmetic, so max_i fl(x_i - d) equals
+    fl(max_i x_i - d): bitwise equal to the 9-gather path.
+
+      depth test: every cell empty, or every non-empty cell within the
+                  band: nm_max - d < tol  and  nm_min - d > -tol
+      view block: no cell empty and every cell beyond the band,
+                  raw_max < MAX_DEPTH  and  nm_min - d > tol"""
+    nm_min, nm_max, raw_max = pool3
+    imgC = cam_ops.mult(cams, ci, centers, torch.zeros_like(ci))
+    d = imgC[..., 2]
+    ix0 = cam_ops.f2i(imgC[..., 0] / d + 0.5) - 1
+    iy0 = cam_ops.f2i(imgC[..., 1] / d + 0.5) - 1
+    w0 = imgs.width[ci, 0]
+    h0 = imgs.height[ci, 0]
+    # all 9 neighbours in the image (ix0 + 2 < w0 could wrap int32)
+    allinb = ((d >= 0) & (ix0 >= 0) & (ix0 < w0 - 2)
+              & (iy0 >= 0) & (iy0 < h0 - 2))
+    xs = torch.clamp(_floordiv(ix0, 2), 0, nm_min.shape[2] - 1).long()
+    ys = torch.clamp(_floordiv(iy0, 2), 0, nm_min.shape[1] - 1).long()
+
+    ray = centers - cams.center[ci]
+    ray = ray / torch.clamp(torch.linalg.vector_norm(ray, dim=-1, keepdim=True),
+                            min=1e-12)
+    factor = torch.clamp(2.0 + torch.sum(ray * normals, dim=-1), max=2.0)
+    tol = scales * margin * factor * 2.0
+    lo_cell = nm_min[ci, ys, xs]
+    lo = lo_cell - d
+    if view_block:
+        res = (raw_max[ci, ys, xs] < MAX_DEPTH) & (lo > tol)
+    else:
+        # an all-empty window passes whatever tol is, as its 9 cells do
+        res = ((nm_max[ci, ys, xs] - d < tol) & (lo > -tol)) \
+            | (lo_cell == float("inf"))
+    return res & allinb
 
 
 def _depth_test_at(pack: DepthPack, cams, imgs, opt: Options, centers,
@@ -267,20 +339,26 @@ def _depth_test_view(pack, cams, imgs, opt: Options, centers, normals, scales,
 
 
 def depth_tests(pack: DepthPack, cams, imgs, opt: Options, centers, normals,
-                scales, views, margin, full0=None):
-    """Scene::depthTests (Scene.cpp:518-524): #views passing the depth test."""
+                scales, views, margin, full0=None, pool3=None):
+    """Scene::depthTests (Scene.cpp:518-524): #views passing the depth test.
+    pool3: pool_full_depth(full0), for DEPTH_SUBSAMPLE=2 only."""
     ci = torch.clamp(views, min=0).long()
     B, K = views.shape
     cc = centers[:, None, :].expand(B, K, 3)
     nn = normals[:, None, :].expand(B, K, 3)
     ss = scales[:, None].expand(B, K)
-    res = _depth_test_view(pack, cams, imgs, opt, cc, nn, ss, ci, margin,
-                           view_block=False, full0=full0)
+    if pool3 is not None:
+        res = _depth_test_view_pooled(cams, imgs, cc, nn, ss, ci, margin,
+                                      view_block=False, pool3=pool3)
+    else:
+        res = _depth_test_view(pack, cams, imgs, opt, cc, nn, ss, ci, margin,
+                               view_block=False, full0=full0)
     return torch.sum(res & (views >= 0), dim=-1)
 
 
 def view_block_test(pack: DepthPack, cams, imgs, opt: Options, centers,
-                    normals, scales, margin, n_images: int, full0=None):
+                    normals, scales, margin, n_images: int, full0=None,
+                    pool3=None):
     """Scene::viewBlockTest (Scene.cpp:610-644): over ALL images, count views
     where the patch floats in front of a confirmed surface."""
     B = centers.shape[0]
@@ -299,8 +377,12 @@ def view_block_test(pack: DepthPack, cams, imgs, opt: Options, centers,
     vis = ((uvw[..., 0] >= 0) & (uvw[..., 0] <= w)
            & (uvw[..., 1] >= 0) & (uvw[..., 1] <= h))
 
-    blocked = _depth_test_view(pack, cams, imgs, opt, cc, nn, ss, ci,
-                               margin, view_block=True, full0=full0)
+    if pool3 is not None:
+        blocked = _depth_test_view_pooled(cams, imgs, cc, nn, ss, ci, margin,
+                                          view_block=True, pool3=pool3)
+    else:
+        blocked = _depth_test_view(pack, cams, imgs, opt, cc, nn, ss, ci,
+                                   margin, view_block=True, full0=full0)
     return torch.sum(blocked & lvl_ok & vis, dim=-1)
 
 

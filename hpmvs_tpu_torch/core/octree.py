@@ -16,9 +16,11 @@ doctree.h:421-433; divergence documented). All queries are vectorized
 (sorted-key membership via np.searchsorted per level), so scheduling cost is
 O(batch x levels x log cells) instead of per-patch pointer chasing.
 
-Host numpy only: the JAX package's optional prebuilt native query library
-(hpmvs_tpu/core/native.py) is not ported yet, so every query takes the numpy
-path, which that library mirrors exactly.
+The large queries (structure_level, containing_cell, lookup, and key_at
+over 4096 points or more at one level) go to the native query library
+(core/native.py, native/octree_core.cpp built at first use) unless the tree
+is made with native=False; the numpy path is its twin and answers
+bit-identically (tests/test_torch_native.py).
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from hpmvs_tpu_torch.core import native as native_lib
 
 MAX_LEVELS = 21  # 3*21 = 63 morton bits
 
@@ -121,13 +125,15 @@ class PatchStore:
 
 
 class LinearOctree:
-    """Occupied-cell table + derived structure queries."""
+    """Occupied-cell table + derived structure queries. native: answer the
+    large queries with the native library (core/native.py), else numpy."""
 
     def __init__(self, center: np.ndarray, width: float,
-                 max_level: int = MAX_LEVELS - 1):
+                 max_level: int = MAX_LEVELS - 1, native: bool = True):
         self.center = np.asarray(center, np.float64)
         self.width = float(width)
         self.max_level = max_level
+        self.native = native
         cap = 1024
         self._cap = cap
         self.n = 0
@@ -174,8 +180,41 @@ class LinearOctree:
         return np.clip(ij, 0, (res - 1)[..., None])
 
     def key_at(self, pts: np.ndarray, level) -> np.ndarray:
+        lv = np.asarray(level)
+        if self.native and lv.ndim == 0 \
+                and pts.shape[0] >= native_lib.SORT_THRESHOLD:
+            return native_lib.keys_at_level(pts, self.center, self.width,
+                                            int(lv))
         ij = self.cell_coords(pts, np.broadcast_to(level, (pts.shape[0],)))
         return morton_encode(ij[:, 0], ij[:, 1], ij[:, 2])
+
+    def keys_at_levels(self, pts: np.ndarray, lv: np.ndarray) -> np.ndarray:
+        """Keys of points each at its own level (one key_at per level)."""
+        keys = np.zeros(len(pts), np.uint64)
+        for L in np.unique(lv):
+            m = lv == L
+            keys[m] = self.key_at(pts[m], int(L))
+        return keys
+
+    def seed_pushdown(self, pts: np.ndarray, lv: np.ndarray):
+        """Seed conflict push-down (doctree.h:378-394 split-with-buffer
+        semantics): finer structure made by co-located finer seeds pushes
+        coarser seeds down until no seed's cell holds another seed's finer
+        cell. Returns (levels, keys at those levels)."""
+        if self.native:
+            return native_lib.seed_pushdown(np.asarray(pts, np.float64),
+                                            self.center, self.width,
+                                            self.max_level, lv)
+        lv = np.asarray(lv, np.int64)
+        for _ in range(self.max_level):
+            tmp = LinearOctree(self.center, self.width, self.max_level,
+                               native=False)
+            tmp.alloc_cells(lv.astype(np.int8), self.keys_at_levels(pts, lv))
+            new_lv = np.maximum(lv, tmp.structure_level(pts))
+            if (new_lv == lv).all():
+                break
+            lv = new_lv
+        return lv, self.keys_at_levels(pts, lv)
 
     def contains(self, pts: np.ndarray) -> np.ndarray:
         lo = self.center - self.width / 2.0
@@ -216,6 +255,29 @@ class LinearOctree:
             anc[lv] = (np.unique(np.concatenate(parts)) if parts
                        else np.zeros((0,), np.uint64))
         self._index = {"occ": occ, "anc": anc}
+        if self.native:
+            self._index.update(self._flat_index(occ, anc))
+
+    def _flat_index(self, occ, anc):
+        """The per-level sets flattened for the native library: sorted keys
+        of every level back to back, with level offsets (and cell ids)."""
+        nl = self.max_level + 1
+        anc_off = np.zeros(nl + 1, np.int64)
+        occ_off = np.zeros(nl + 1, np.int64)
+        anc_parts, occ_parts, cid_parts = [], [], []
+        for lv in range(nl):
+            anc_off[lv + 1] = anc_off[lv] + len(anc[lv])
+            anc_parts.append(anc[lv])
+            k, cids = occ.get(lv, (np.zeros((0,), np.uint64),
+                                   np.zeros((0,), np.int64)))
+            occ_off[lv + 1] = occ_off[lv] + len(k)
+            occ_parts.append(k)
+            cid_parts.append(cids.astype(np.int64))
+        return {"anc_flat": np.concatenate(anc_parts).astype(np.uint64),
+                "anc_off": anc_off,
+                "occ_flat": np.concatenate(occ_parts).astype(np.uint64),
+                "occ_off": occ_off,
+                "occ_cid": np.concatenate(cid_parts).astype(np.int64)}
 
     def _idx(self):
         if self._index is None:
@@ -234,6 +296,10 @@ class LinearOctree:
         """Level of the leaf `at(p)` would return: 1 + deepest branch level
         containing p (0 when the tree is empty at p)."""
         idx = self._idx()
+        if self.native:
+            return native_lib.structure_level(
+                self.key_at(pts, self.max_level), self.max_level,
+                idx["anc_flat"], idx["anc_off"])
         out = np.zeros((pts.shape[0],), np.int64)
         for lv in range(self.max_level + 1):
             anc = idx["anc"][lv]
@@ -247,6 +313,10 @@ class LinearOctree:
         """Occupied cell id containing each point, or -1 (leaves are
         disjoint, so at most one level matches)."""
         idx = self._idx()
+        if self.native:
+            return native_lib.containing_cell(
+                self.key_at(pts, self.max_level), self.max_level,
+                idx["occ_flat"], idx["occ_off"], idx["occ_cid"])
         out = np.full((pts.shape[0],), -1, np.int64)
         for lv, (keys, cids) in idx["occ"].items():
             q = self.key_at(pts, lv)
@@ -259,6 +329,10 @@ class LinearOctree:
     def lookup(self, levels: np.ndarray, keys: np.ndarray) -> np.ndarray:
         """Cell ids for exact (level, key) pairs, -1 if absent."""
         idx = self._idx()
+        if self.native:
+            return native_lib.lookup_cells(levels, keys, self.max_level,
+                                           idx["occ_flat"], idx["occ_off"],
+                                           idx["occ_cid"])
         out = np.full(keys.shape, -1, np.int64)
         for lv, (k, cids) in idx["occ"].items():
             m = levels == lv

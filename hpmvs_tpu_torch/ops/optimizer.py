@@ -391,8 +391,10 @@ def _sort_images_b(ctx, opt: Options, center, normal, scale, views):
     # float32 threshold as a tensor: torch evaluates python_scalar / tensor
     # as scalar * reciprocal(tensor), whose rounding can drop a ratio just
     # below 1 and let a picked slot (reset to BIG) win again
-    thr = torch.tensor(
-        1.0 - sampling.cos32(opt.SORT_SUPPRESS_DEG * torch.pi / 180.0),
+    # (torch.full, not torch.tensor: no host-to-device copy, which would
+    # make the host wait for the stream)
+    thr = torch.full(
+        (), 1.0 - sampling.cos32(opt.SORT_SUPPRESS_DEG * torch.pi / 180.0),
         dtype=torch.float32, device=views.device)
     thr_half = thr / 2.0
 
@@ -917,15 +919,19 @@ def optimize_and_gate(ctx: SceneCtx, pack, opt: Options, n_images: int,
     # collapsed full-depth buffer: the pyramid min computed ONCE per call, so
     # the depth and viewBlock tests read 1 cell per (lane, view, neighbour)
     # instead of n_levels
-    full0 = None
+    full0 = pool3 = None
     if pack_layout is not None:
         full0 = depth_mod.collapse_full_depth(pack.depth, pack_layout,
                                               n_images)
+        if opt.DEPTH_SUBSAMPLE == 2:
+            # its 2x2 pools: the 3x3-neighbourhood tests gather 2 pooled
+            # values per (lane, image) instead of 9 (depth.pool_full_depth)
+            pool3 = depth_mod.pool_full_depth(full0)
     imgs = ctx.imgs
     dt = depth_mod.depth_tests(pack, ctx.cams, imgs, opt, oc, on, os_, ov, m,
-                               full0=full0)
+                               full0=full0, pool3=pool3)
     vb = depth_mod.view_block_test(pack, ctx.cams, imgs, opt, oc, on, os_, m,
-                                   n_images, full0=full0)
+                                   n_images, full0=full0, pool3=pool3)
     pf = depth_mod.pixel_free_tests(pack, ctx.cams, imgs, opt, oc, os_, ov)
     nv = torch.sum(ov >= 0, dim=1)
     g = g & (dt >= opt.MIN_IMAGES_PER_PATCH)

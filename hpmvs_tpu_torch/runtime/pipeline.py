@@ -66,6 +66,18 @@ def run(model: nvm_io.NvmModel, opt: Options, images=None,
              100.0 * host_frac)
     engine.stats["proc_time"] = proc_time
     engine.stats["host_fraction"] = host_frac
+    st = engine.stats
+    log.info("wave lookahead: %d hits, %d misses, %.2f s of host work "
+             "overlapped; deep waves: %d dispatches, %d generations "
+             "consumed, %d fallbacks (overflow %d, mismatch %d, dead %d), %d "
+             "false-winner repairs; speculative waste %d lanes, %d dropped; "
+             "octree queries %s", st["lookahead_hits"],
+             st["lookahead_misses"], float(st["t_host_overlapped"]),
+             st["disp_deep"], st["deep_gens_consumed"], st["deep_fallbacks"],
+             st["deep_fb_overflow"], st["deep_fb_mismatch"],
+             st["deep_fb_dead"], st["deep_false_winner_repairs"],
+             st["spec_waste_lanes"], st["spec_dropped_lanes"],
+             "native" if st["octree_native"] else "numpy")
 
     engine.save_ply(os.path.join(opt.OUTFOLDER, "patches-final.ply"))
     if light_output > 0:

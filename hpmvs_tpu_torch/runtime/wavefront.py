@@ -18,17 +18,32 @@ doctree.h:396-419) becomes a deterministic first-wins dedup by target cell
 key within the batch (documented divergence: the reference resolves by
 thread-interleaved arrival order).
 
-The octree bookkeeping (key sets, queues) stays on host numpy. This is the
-single-device engine of hpmvs_tpu/runtime/wavefront.py without wave
-lookahead, deep waves and the mesh paths.
+The octree bookkeeping (key sets, queues) stays on the host, its large
+queries in the native octree library (core/native.py). This is the
+single-device engine of hpmvs_tpu/runtime/wavefront.py, with its two wave
+modes:
+
+  - wave lookahead (WAVE_LOOKAHEAD): wave N+1's extend batch is dispatched
+    before wave N is routed (_speculate_next, _speculate_after_branch), so
+    the host's routing overlaps the device's work;
+  - deep waves (WAVE_DEPTH > 1, ops/deepwave.py): one dispatch enqueues
+    WAVE_DEPTH generations of extend waves, the device simulating the
+    router between them, and the host consumes them one wave at a time
+    (_deep_consume), falling back to a fresh dispatch when the device's
+    guess no longer covers the host's winners.
 
 Shape policy: PyTorch runs eagerly and compiles nothing per shape, so the
 JAX engine's coarse shape buckets (_bucket), its flush chunking
-(FLUSH_CHUNK) and its deep-batch cap (DEEP_BATCH_CAP) -- all there for XLA
-recompiles and TPU memory limits -- are gone. Batches go to the device at
-their exact size, chunked at Options.BATCH to bound device memory; the GN
-kernel's wrapper pads each chunk to its 128-patch block. The deferred depth
-window always rides the next dispatch whole.
+(FLUSH_CHUNK) and its deep-batch cap (DEEP_BATCH_CAP, a TPU SMEM limit) are
+gone. Classic batches go to the device at their exact size, chunked at
+Options.BATCH to bound device memory; the GN kernel's wrapper pads each
+chunk to its 128-patch block. A deep dispatch keeps the JAX engine's
+512-doubling width ladder, capped at BATCH: generation g+1 holds
+width // EXTEND_DIRS parents, so the width is part of the algorithm. A wave
+goes deep only while it fits one BATCH chunk. The deferred depth window
+always rides the next dispatch whole. Uploads to the GPU go through pinned
+memory without blocking, so enqueueing a dispatch never waits for the
+device; the host waits only when it copies results back.
 """
 
 from __future__ import annotations
@@ -44,9 +59,11 @@ import torch
 from hpmvs_tpu_torch import resolve_device
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.core import depth as depth_mod
+from hpmvs_tpu_torch.core import native
 from hpmvs_tpu_torch.core import scene as scene_mod
 from hpmvs_tpu_torch.core.octree import LinearOctree, PatchStore
 from hpmvs_tpu_torch.io import ply as ply_io
+from hpmvs_tpu_torch.ops import deepwave
 from hpmvs_tpu_torch.ops import optimizer as popt
 
 log = logging.getLogger("hpmvs_tpu_torch")
@@ -54,14 +71,15 @@ log = logging.getLogger("hpmvs_tpu_torch")
 
 class Engine:
     """Owns the whole reconstruction state: device scene context + depth
-    buffers, host patch store + linear octree + priority queues."""
+    buffers, host patch store + linear octree + priority queues.
+
+    native_octree: answer the octree's large queries with the native
+    library (built at first use; a failed build raises), else with numpy.
+    stats["octree_native"] records which."""
 
     def __init__(self, model, opt: Options, images=None,
-                 visdata_path: Optional[str] = None, device="cuda"):
-        if opt.WAVE_DEPTH != 1 or opt.WAVE_LOOKAHEAD:
-            raise NotImplementedError(
-                "not yet ported to hpmvs_tpu_torch: WAVE_DEPTH > 1 (deep "
-                "waves) and WAVE_LOOKAHEAD=True")
+                 visdata_path: Optional[str] = None, device="cuda",
+                 native_octree: bool = True):
         self.opt = opt
         self.model = model
         self.device = resolve_device(device)
@@ -93,7 +111,16 @@ class Engine:
         self.queue: Dict[int, List[np.ndarray]] = defaultdict(list)
         # deferred setDepths updates, applied by the next dispatch
         self._pend: List[tuple] = []  # (c, s, views, is_subtract) windows
+        # outstanding wave-lookahead speculation (_speculate_next)
+        self._spec = None
+        # one-shot routing flags of the lookahead (_insert_new_patches)
+        self._last_inserted = None
+        self._depths_pre_added = False
         self.stats = defaultdict(int)
+        self._native = bool(native_octree)
+        if self._native:
+            native.lib()
+        self.stats["octree_native"] = self._native
 
     # ------------------------------------------------------------------
     # plumbing: cell membership as head/next chains, batched queue pushes
@@ -183,18 +210,22 @@ class Engine:
     def _set_depths(self, pids: np.ndarray, subtract: bool = False):
         """Scene::setDepths. Adds and subtracts are DEFERRED: they ride the
         next dispatch in their original order (phase tags add*/sub*/add*).
-        A second subtract run after an add-after-sub run would need a 4th
-        phase -- flush first (rare)."""
-        if len(pids) == 0:
+        The projection inputs are snapshot now: subtracted patches are freed
+        (and their store slots reused) before the window flushes."""
+        self._pend_raw(self.patches.center[pids], self.patches.scale[pids],
+                       self.patches.views[pids], subtract)
+
+    def _pend_raw(self, c, s, v, subtract: bool):
+        """Stage raw depth windows (also the deep waves' add and subtract
+        repairs). A second subtract run after an add-after-sub run would
+        need a 4th phase -- flush first (rare)."""
+        if len(s) == 0:
             return
         if subtract and any(e[3] for e in self._pend) \
                 and not self._pend[-1][3]:
             self._flush_depths()
-        # SNAPSHOT the projection inputs now: subtracted patches are freed
-        # (and their store slots reused) before the window flushes
-        self._pend.append((self.patches.center[pids].copy(),
-                           self.patches.scale[pids].copy(),
-                           self.patches.views[pids].copy(), subtract))
+        self._pend.append((np.array(c, np.float32), np.array(s, np.float32),
+                           np.array(v, np.int32), subtract))
 
     def _pend_arrays(self):
         """Concatenate the deferred window into (c, s, v, phase)."""
@@ -239,7 +270,14 @@ class Engine:
     # device dispatch
     # ------------------------------------------------------------------
     def _dev(self, a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+        """Host array -> device tensor. To the GPU through pinned memory
+        without blocking: a pageable copy would make the host wait for
+        everything enqueued before it (the caching host allocator keeps the
+        pinned block until its copy has run)."""
+        t = torch.as_tensor(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -293,7 +331,7 @@ class Engine:
         c, n, s, v, orig = scene_mod.make_seed_patches(self.model, self.scene,
                                                        opt)
         if c.shape[0] == 0:
-            self.tree = LinearOctree(np.zeros(3), 2.0)
+            self.tree = LinearOctree(np.zeros(3), 2.0, native=self._native)
             return 0
         t0 = time.time()
         out_c, out_n, out_s, out_v, ok, col, _ = self._optimize(c, n, s, v)
@@ -309,31 +347,21 @@ class Engine:
         c, n, s, v, col = (out_c[keep], out_n[keep], out_s[keep], out_v[keep],
                            col[keep])
         if c.shape[0] == 0:
-            self.tree = LinearOctree(np.zeros(3), 2.0)
+            self.tree = LinearOctree(np.zeros(3), 2.0, native=self._native)
             return 0
         # bounding cube root (Scene.cpp:186-193)
         mn, mx = c.min(0), c.max(0)
         width = max(float(np.max(mx - mn)), 1e-6)
         self.tree = LinearOctree((mn + mx) / 2.0, width,
-                                 max_level=min(opt.MAX_TREE_LEVEL + 2, 20))
+                                 max_level=min(opt.MAX_TREE_LEVEL + 2, 20),
+                                 native=self._native)
         # seed scale floor (Scene.cpp:196)
         s = np.maximum(s, width / (1 << (opt.PATCH_INIT_MAXLEVEL + 1)))
 
         # add(p, scale): level from width formula, then conflict pushdown --
         # finer structure created by co-located finer patches forces coarser
         # patches down (doctree.h:378-394 split-with-buffer semantics)
-        lv = self.tree.level_for_width(s)
-        for _ in range(self.tree.max_level):
-            keys = self._keys_at_levels(c, lv)
-            tmp = LinearOctree(self.tree.center, self.tree.width,
-                               self.tree.max_level)
-            tmp.alloc_cells(lv.astype(np.int8), keys)
-            new_lv = np.maximum(lv, tmp.structure_level(c))
-            if (new_lv == lv).all():
-                break
-            lv = new_lv
-        keys = self._keys_at_levels(c, lv)
-
+        lv, keys = self.tree.seed_pushdown(c, self.tree.level_for_width(s))
         pair = np.stack([lv.astype(np.uint64), keys])
         uniq, inv = np.unique(pair, axis=1, return_inverse=True)
         inv = inv.reshape(-1)
@@ -353,13 +381,6 @@ class Engine:
         self._push_many(uniq[0].astype(np.int64) * 10, cids)
         self.stats["seeds"] = len(c)
         return len(c)
-
-    def _keys_at_levels(self, pts, lv):
-        keys = np.zeros(len(pts), np.uint64)
-        for L in np.unique(lv):
-            m = lv == L
-            keys[m] = self.tree.key_at(pts[m], int(L))
-        return keys
 
     # ------------------------------------------------------------------
     # the cell state machine, batched (CellProcessor::processCell)
@@ -475,7 +496,24 @@ class Engine:
         self._extend_cells_batch(cids)
 
     def _extend_cells_batch(self, cids: np.ndarray):
+        opt = self.opt
         pids = self.cell_head[cids]
+        spec = self._spec
+        self._spec = None
+        if spec is not None:
+            if self._spec_matches(spec, pids):
+                self.stats["lookahead_hits"] += 1
+                if spec.get("deep"):
+                    self._deep_consume(spec, cids, pids)
+                else:
+                    self._extend_finish_from(spec, cids, pids)
+                return
+            # speculation missed: its depth side effects were real and are
+            # already in the z-buffer (always correct); only the gate output
+            # is dropped. Its lanes never counted into patches_optimized
+            # (count=False at dispatch); they count as speculative waste.
+            self.stats["lookahead_misses"] += 1
+            self.stats["spec_dropped_lanes"] += len(spec["cand_c"])
         centers = self.patches.center[pids]
         normals = self.patches.normal[pids]
         views = self.patches.views[pids]
@@ -487,15 +525,30 @@ class Engine:
          pr_lanes) = self._extend_candidates(centers, normals, views,
                                              prio_red, widths, levels)
         self.stats["extend_candidates"] += len(c_in)
+        if len(c_in) == 0:
+            self._finish_extend(cids, pids, levels, prio_red)
+            return
+        if self._lookahead_ok():
+            # speculative path: dispatch every chunk, fetch, then speculate
+            # wave N+1 BEFORE routing (whole-batch route; the in-batch
+            # first-wins dedup stands in for chunk order as it stands in
+            # for the reference's sequential order)
+            out = self._fetch_spec_chunks(self._spec_dispatch(
+                c_in, n_in, s_in, v_in, p_in, w_in))
+            self._speculate_next(out, lv_lanes, pr_lanes)
+            n_ins = self._insert_new_patches(*out, lv_lanes, pr_lanes)
+            self._commit_spec()
+            self.stats["extended"] += n_ins
+            self._finish_extend(cids, pids, levels, prio_red)
+            return
         n_ins = 0
-        if len(c_in):
-            for a, b, (oc, on, os_, ov, okk, col) in self._extend_stream(
-                    c_in, n_in, s_in, v_in, p_in, w_in):
-                # routing chunk i overlaps chunks i+1..'s device compute; the
-                # insert-time occupancy re-check keeps first-wins order
-                # identical to whole-batch routing
-                n_ins += self._insert_new_patches(oc, on, os_, ov, okk, col,
-                                                  lv_lanes[a:b], pr_lanes[a:b])
+        for a, b, (oc, on, os_, ov, okk, col) in self._extend_stream(
+                c_in, n_in, s_in, v_in, p_in, w_in):
+            # routing chunk i overlaps chunks i+1..'s device compute; the
+            # insert-time occupancy re-check keeps first-wins order
+            # identical to whole-batch routing
+            n_ins += self._insert_new_patches(oc, on, os_, ov, okk, col,
+                                              lv_lanes[a:b], pr_lanes[a:b])
         self.stats["extended"] += n_ins
         self._finish_extend(cids, pids, levels, prio_red)
 
@@ -538,23 +591,349 @@ class Engine:
         """Yield (start, stop, host results) per BATCH-sized chunk: every
         chunk is enqueued on the device before the first copy back, so the
         host routing of chunk i overlaps chunk i+1..'s device work."""
-        n = centers.shape[0]
-        cap = max(self.opt.BATCH, 16)
-        t0 = time.time()
-        devs, spans = [], []
-        for i in range(0, n, cap):
-            j = min(i + cap, n)
-            devs.append(self._dispatch_extend(
-                centers[i:j], normals[i:j], scales[i:j], views[i:j],
-                parent_c[i:j], widths[i:j]))
-            spans.append((i, j))
-        self.stats["patches_optimized"] += n
-        self.stats["t_device"] += time.time() - t0
-        for dev, (a, b) in zip(devs, spans):
+        for dev, a, b in self._spec_dispatch(centers, normals, scales, views,
+                                             parent_c, widths):
             t1 = time.time()
             got = tuple(t.cpu().numpy() for t in dev)
             self.stats["t_device"] += time.time() - t1
             yield a, b, got
+
+    def _lookahead_ok(self) -> bool:
+        """Wave lookahead needs one extend batch per wave (EXTEND_SUBROUNDS
+        sub-rounds interleave depth updates the speculation cannot see)."""
+        return bool(self.opt.WAVE_LOOKAHEAD) and self.opt.EXTEND_SUBROUNDS <= 1
+
+    # -- deep waves (ops/deepwave.py) ------------------------------------
+    def _deep_bucket(self, n: int) -> int:
+        """Lane count of a deep dispatch: 512 doubling, capped at BATCH.
+        Generation g+1 holds width // EXTEND_DIRS parents, so a dispatch at
+        the wave's exact size would fall back for overflow far more often;
+        the JAX engine's ladder keeps its fallback rate."""
+        b = 512
+        while b < n:
+            b *= 2
+        return min(b, max(self.opt.BATCH, 16))
+
+    def _deep_ok(self, n: int) -> bool:
+        """A wave goes deep while it fits one BATCH chunk; larger waves take
+        the chunked lookahead path."""
+        return self.opt.WAVE_DEPTH > 1 and n <= max(self.opt.BATCH, 16)
+
+    def _deep_dispatch(self, c_in, n_in, s_in, v_in, p_in, w_in):
+        """Enqueue ONE WAVE_DEPTH-generation dispatch (deepwave.
+        optimize_and_gate_deep) without waiting for the device: the device
+        router chains the following waves' optimize + gates behind this
+        wave's, so the host waits for the device once per WAVE_DEPTH waves.
+        Returns (DeepOut on the device, n_lanes)."""
+        n = len(c_in)
+        t0 = time.time()
+        pend = self._take_pending()
+        lanes = [self._dev(a) for a in deepwave.pad_lanes(
+            (c_in, n_in, s_in, v_in, p_in, w_in), self._deep_bucket(n))]
+        root = np.concatenate([np.asarray(self.tree.center, np.float32),
+                               np.asarray([self.tree.width], np.float32)])
+        root = self._dev(root)
+        out = deepwave.optimize_and_gate_deep(
+            self.scene.ctx, self.pack, self.opt, self.scene.n_cameras,
+            deepwave.GateIn(*lanes), root[:3], root[3], pend=pend,
+            n_gens=int(self.opt.WAVE_DEPTH), pack_layout=self._pack_layout)
+        self.stats["dispatches"] += 1
+        self.stats["disp_deep"] += 1
+        self.stats["t_device"] += time.time() - t0
+        return out, n
+
+    def _deep_consume(self, spec, cids, pids):
+        """Consume generation spec["g"] of a deep dispatch as the popped
+        wave (the deep twin of _extend_finish_from; see ops/deepwave.py for
+        the superset / fresh-recheck contract).
+
+        Per generation: re-apply the tree pre-checks FRESH on the
+        device-returned candidate positions, reconcile the DEVICE winner
+        set with the host router's (device winners are a superset; false
+        winners' device depth adds are repaired with staged subtracts, host
+        winners the device dedup missed -- float-boundary quantization --
+        get their adds staged), route, then either step to the next
+        on-device generation (when every host winner has its children rows)
+        or fall back to a fresh speculative dispatch."""
+        g = int(spec["g"])
+        if spec["outs"] is None:
+            interval = time.time() - spec["t_dispatched"]
+            dev_inside = self.stats["t_device"] - spec["t_dev_mark"]
+            self.stats["t_host_overlapped"] += max(interval - dev_inside, 0.0)
+            t0 = time.time()
+            spec["outs"] = deepwave.to_host(spec["dev"])
+            spec["dev"] = None
+            self.stats["t_device"] += time.time() - t0
+        W, B = spec["outs"].ok.shape
+        DIRS = int(self.opt.EXTEND_DIRS)
+        oc_f, on_f, os_f, ov_f, ok_f, col_f, cand_f, win_f = (
+            a[g] for a in spec["outs"])
+        if g == 0:
+            rows = np.arange(int(spec["n_lanes"]))
+            cand = spec["cand_c"]        # host-built, f64-accurate
+        else:
+            rows = spec["rows"]
+            cand = cand_f[rows]
+        lv_l = spec["lv_lanes"]
+        pr_l = spec["pr_lanes"]
+        cell_lv = spec["levels"]
+        cell_pr = spec["prio_red"]
+        oc, on = oc_f[rows], on_f[rows]
+        os_, ov = os_f[rows], ov_f[rows]
+        col = col_f[rows]
+        fresh = (self.tree.contains(cand)
+                 & (self.tree.containing_cell(cand) < 0)
+                 & (self.tree.structure_level(cand) <= lv_l))
+        okf = ok_f[rows] & fresh
+        self.stats["extend_candidates"] += int(fresh.sum())
+        self.stats["patches_optimized"] += int(fresh.sum())
+        self.stats["spec_waste_lanes"] += len(fresh) - int(fresh.sum())
+        # the router's acceptance, precomputed (deterministic)
+        ok2, _ = self._insert_winners(oc, okf, lv_l)
+        acc = np.nonzero(ok2)[0]
+        has_next = g + 1 < W
+        deep_next = False
+        if has_next:
+            hw_full = rows[acc]
+            if g == 0:
+                # generation 0's winner adds happened ON the device (only
+                # generation 0's: see optimize_and_gate_deep). Reconcile:
+                # subtract the false winners, add the host winners the
+                # device dedup missed, and have routing skip its own
+                # _set_depths.
+                ins_full = np.zeros(B, bool)
+                ins_full[hw_full] = True
+                false_w = win_f & ~ins_full
+                if false_w.any():
+                    self._pend_raw(oc_f[false_w], os_f[false_w],
+                                   ov_f[false_w], subtract=True)
+                    self.stats["deep_false_winner_repairs"] += \
+                        int(false_w.sum())
+                miss_add = hw_full[~win_f[hw_full]]
+                if len(miss_add):
+                    self._pend_raw(oc_f[miss_add], os_f[miss_add],
+                                   ov_f[miss_add], subtract=False)
+                self._depths_pre_added = True
+            # next-generation coverage: every host winner must own children
+            # rows
+            dev_lanes = np.nonzero(win_f)[0]
+            n_par = B // DIRS
+            if len(acc) == 0:
+                self.stats["deep_fb_dead"] += 1
+            elif len(dev_lanes) == 0:
+                self.stats["deep_fb_mismatch"] += 1
+            else:
+                pos = np.searchsorted(dev_lanes, hw_full)
+                safe = np.minimum(pos, len(dev_lanes) - 1)
+                in_dev = (pos < len(dev_lanes)) & (dev_lanes[safe] == hw_full)
+                covered = in_dev & (pos < n_par)
+                deep_next = bool(covered.all())
+                if not deep_next:
+                    if bool(in_dev.all()):
+                        self.stats["deep_fb_overflow"] += 1
+                    else:
+                        self.stats["deep_fb_mismatch"] += 1
+        if not deep_next:
+            if has_next:
+                self.stats["deep_fallbacks"] += 1
+                self.stats["spec_dropped_lanes"] += (W - g - 1) * B
+            # last generation (or fallback): classic next-wave speculation
+            # BEFORE routing mutates the tree (may itself go deep)
+            self._speculate_next((oc, on, os_, ov, okf, col), lv_l, pr_l)
+            n_ins = self._insert_new_patches(oc, on, os_, ov, okf, col, lv_l,
+                                             pr_l)
+            self._commit_spec()
+            self.stats["extended"] += n_ins
+            self._finish_extend(cids, pids, cell_lv, cell_pr)
+            return
+        n_ins = self._insert_new_patches(oc, on, os_, ov, okf, col, lv_l,
+                                         pr_l)
+        self.stats["extended"] += n_ins
+        self._finish_extend(cids, pids, cell_lv, cell_pr)
+        # step the spec to the next on-device generation: wave N+1's lanes
+        # are the children rows of the just-inserted parents, in insertion
+        # (ascending-lane) order == their queue pop order
+        new_pids = np.asarray(self._last_inserted)
+        if len(new_pids) != len(acc):       # never expected
+            self._spec = None
+            self.stats["deep_fallbacks"] += 1
+            return
+        spec["rows"] = (pos[:, None] * DIRS + np.arange(DIRS)[None]).ravel()
+        spec["lv_lanes"] = np.repeat(lv_l[acc], DIRS)
+        spec["pr_lanes"] = np.repeat(pr_l[acc], DIRS)
+        spec["src_sel"] = np.repeat(np.arange(len(acc)), DIRS)
+        spec["levels"] = lv_l[acc]
+        spec["prio_red"] = pr_l[acc]
+        spec["n_par"] = len(acc)
+        spec["par_pids"] = new_pids.copy()
+        spec["par_c"] = self.patches.center[new_pids].copy()
+        spec["g"] = g + 1
+        self.stats["deep_gens_consumed"] += 1
+        self._spec = spec
+
+    # -- wave lookahead ---------------------------------------------------
+    def _spec_dispatch(self, c_in, n_in, s_in, v_in, p_in, w_in,
+                       count: bool = True):
+        """Enqueue a wave's extend batch as BATCH-sized chunk dispatches
+        without waiting; returns [(device outputs, a, b), ...] for
+        _fetch_spec_chunks. count=False for SPECULATIVE dispatches: their
+        lanes count into patches_optimized at consume time, from the fresh
+        re-check's survivors (the lanes a non-speculative engine would have
+        dispatched), so dropped speculations and stale superset lanes never
+        inflate it."""
+        cap = max(self.opt.BATCH, 16)
+        n = len(c_in)
+        t0 = time.time()
+        devs = []
+        for i in range(0, n, cap):
+            j = min(i + cap, n)
+            devs.append((self._dispatch_extend(
+                c_in[i:j], n_in[i:j], s_in[i:j], v_in[i:j], p_in[i:j],
+                w_in[i:j]), i, j))
+        if count:
+            self.stats["patches_optimized"] += n
+        self.stats["t_device"] += time.time() - t0
+        return devs
+
+    def _fetch_spec_chunks(self, devs):
+        """Blocking fetch of _spec_dispatch chunks -> one wave's 6 host
+        arrays."""
+        t0 = time.time()
+        outs = [tuple(t.cpu().numpy() for t in dev) for dev, _, _ in devs]
+        self.stats["t_device"] += time.time() - t0
+        if len(outs) == 1:
+            return outs[0]
+        return tuple(np.concatenate([o[j] for o in outs]) for j in range(6))
+
+    def _spec_matches(self, spec, pids) -> bool:
+        # pids AND content: an external mutation between waves leaves pids
+        # equal but voids the speculated inputs -- drop_speculation()
+        # covers the known sites, the centre comparison is the backstop
+        return spec["par_pids"] is not None \
+            and len(pids) == len(spec["par_pids"]) \
+            and np.array_equal(spec["par_pids"], pids) \
+            and np.array_equal(self.patches.center[pids], spec["par_c"])
+
+    def drop_speculation(self):
+        """Void any outstanding wave speculation. Call after mutating engine
+        state outside the wave loop: the speculative dispatch's inputs were
+        captured before the mutation. Its depth side effects remain correct
+        either way."""
+        self._spec = None
+
+    def _commit_spec(self):
+        """Bind the speculation to the router's actual alloc: the simulated
+        winners and the routed winners are the same deterministic set, so
+        the freshly inserted pids ARE the speculated parents (in order). A
+        count mismatch (never expected) voids the speculation."""
+        spec = self._spec
+        if spec is None:
+            return
+        pids = self._last_inserted
+        if pids is None or len(pids) != spec["n_par"]:
+            self._spec = None
+            return
+        spec["par_pids"] = np.asarray(pids).copy()
+
+    def _extend_finish_from(self, spec, cids, pids):
+        """Consume a speculative extend dispatch whose predicted wave
+        membership matched the popped wave exactly."""
+        # host work done between the speculative dispatch and this fetch
+        # ran while the dispatch was in flight: off the critical path.
+        # Device-blocking time inside the interval (the intervening wave's
+        # fetches) is already in t_device, so its delta is subtracted.
+        interval = time.time() - spec["t_dispatched"]
+        dev_inside = self.stats["t_device"] - spec["t_dev_mark"]
+        self.stats["t_host_overlapped"] += max(interval - dev_inside, 0.0)
+        out = self._fetch_spec_chunks(spec["devs"])
+        # re-apply the economy pre-check FRESH (the dispatch used a one-wave
+        # stale tree, so a superset of lanes ran): masking the now occupied
+        # or finer targets out of ok makes the routed lane set match a
+        # non-speculative wave, except that targets freed between
+        # speculation and consumption (remove-phase frees, filters on other
+        # cells) stay absent -- the mask only removes lanes
+        cand = spec["cand_c"]
+        lv = spec["lv_lanes"]
+        fresh = (self.tree.contains(cand)
+                 & (self.tree.containing_cell(cand) < 0)
+                 & (self.tree.structure_level(cand) <= lv))
+        self.stats["extend_candidates"] += int(fresh.sum())
+        self.stats["patches_optimized"] += int(fresh.sum())
+        self.stats["spec_waste_lanes"] += len(fresh) - int(fresh.sum())
+        oc, on, os_, ov, ok, col = out
+        out = (oc, on, os_, ov, ok & fresh, col)
+        self._speculate_next(out, spec["lv_lanes"], spec["pr_lanes"])
+        n_ins = self._insert_new_patches(*out, spec["lv_lanes"],
+                                         spec["pr_lanes"])
+        self._commit_spec()
+        self.stats["extended"] += n_ins
+        self._finish_extend(cids, pids, spec["levels"], spec["prio_red"])
+
+    def _speculate_next(self, out, lv_lanes, pr_lanes):
+        """Wave-level lookahead: the next extend wave at this pmin consists
+        EXACTLY of the patches this wave's routing is about to insert, and
+        insertion is a deterministic function of the fetched gate output and
+        the current tree -- simulated here with the router's own
+        _insert_winners BEFORE routing mutates anything. Dispatching those
+        patches' extend batch now lets wave N's host routing overlap wave
+        N+1's device work -- the reference gets the same overlap from
+        separate scheduler threads (main.cpp:150-154).
+
+        Semantics (documented divergences; WAVE_LOOKAHEAD=False disables):
+        wave N's depth ADDS are pre-staged from the simulated winners and
+        ride this dispatch -- the same dispatch they ride without
+        speculation -- so the next wave's gates read a z-buffer with no add
+        lag; only subtracts created after the speculation (removal-phase
+        losers) lag one dispatch. The occupancy pre-check at dispatch is
+        one wave stale (a superset of lanes runs); _extend_finish_from
+        re-applies it fresh before routing. Large waves route whole-batch.
+        A wave that fits one BATCH chunk goes deep when WAVE_DEPTH > 1."""
+        self._spec = None
+        if not self._lookahead_ok():
+            return
+        oc, on, os_, ov, ok, col = out
+        ok2, _ = self._insert_winners(oc, ok, lv_lanes)
+        acc = np.nonzero(ok2)[0]
+        if len(acc) == 0:
+            return
+        par_c = np.ascontiguousarray(oc[acc], np.float32)
+        par_n = np.ascontiguousarray(on[acc], np.float32)
+        par_v = np.ascontiguousarray(ov[acc])
+        lv_a = lv_lanes[acc]
+        pr_a = pr_lanes[acc]
+        widths = self.tree.width / (2.0 ** lv_a.astype(np.float64))
+        (c_in, n_in, s_in, v_in, p_in, w_in, src_sel, lv2,
+         pr2) = self._extend_candidates(par_c, par_n, par_v, pr_a, widths,
+                                        lv_a)
+        if len(c_in) == 0:
+            return
+        # pre-stage wave N's depth ADDS from the simulated winners (the
+        # arrays routing's _set_depths(new_pids) would snapshot): they ride
+        # this speculative dispatch, so routing skips its own _set_depths
+        # for these inserts (_depths_pre_added)
+        self._pend_raw(par_c, os_[acc], par_v, subtract=False)
+        self._depths_pre_added = True
+        # predicted pids: the router allocs deterministically in acc order;
+        # recorded AFTER routing by _commit_spec (the next wave's pop is
+        # compared against them)
+        spec = {"src_sel": src_sel, "par_c": par_c, "cand_c": c_in,
+                "lv_lanes": lv2, "pr_lanes": pr2, "levels": lv_a,
+                "prio_red": pr_a, "n_par": len(acc), "par_pids": None}
+        self._dispatch_spec(spec, c_in, n_in, s_in, v_in, p_in, w_in)
+
+    def _dispatch_spec(self, spec, c_in, n_in, s_in, v_in, p_in, w_in):
+        """Dispatch a speculated wave, deep when it fits, and make it the
+        outstanding speculation."""
+        if self._deep_ok(len(c_in)):
+            dev, n_lanes = self._deep_dispatch(c_in, n_in, s_in, v_in, p_in,
+                                               w_in)
+            spec.update(deep=True, g=0, outs=None, dev=dev, n_lanes=n_lanes)
+        else:
+            spec["devs"] = self._spec_dispatch(c_in, n_in, s_in, v_in, p_in,
+                                               w_in, count=False)
+        spec["t_dispatched"] = time.time()
+        spec["t_dev_mark"] = float(self.stats["t_device"])
+        self._spec = spec
 
     def _insert_winners(self, oc, ok, lv_t):
         """The deterministic insertability decision of _insert_new_patches
@@ -587,7 +966,11 @@ class Engine:
         # addConditional at the *optimized* position (CellProcessor.cpp:154)
         ok, keys = self._insert_winners(oc, ok, lv_t)
         acc = np.nonzero(ok)[0]
+        self._last_inserted = acc
         if len(acc) == 0:
+            # a leaked one-shot flag would make a later unrelated insert
+            # skip its _set_depths
+            self._depths_pre_added = False
             return 0
         lv_a = lv_t[acc]
         pr_a = prio_red[acc]
@@ -602,8 +985,15 @@ class Engine:
         self.patches.expanded[new_pids] = False
         self.patches.prio_red[new_pids] = pr_a
         self.patches.dirty[new_pids] = False
+        self._last_inserted = new_pids
         self.insert_patches(new_pids, new_cids)
-        self._set_depths(new_pids)
+        if self._depths_pre_added:
+            # the speculation already staged these adds into the window that
+            # rode its dispatch (one-shot flag, set only for the route call
+            # right after the speculation)
+            self._depths_pre_added = False
+        else:
+            self._set_depths(new_pids)
         self._push_many((lv_a.astype(np.int64) + pr_a) * 10, new_cids)
         return len(acc)
 
@@ -726,7 +1116,7 @@ class Engine:
         # candidates must stay within the parent cell (pre-gate, :252)
         lv_par = levels[work][src]
         key_par = self.tree.key[cids[work]][src]
-        in_cell = self._keys_at_levels(cand_c, lv_par) == key_par
+        in_cell = self.tree.keys_at_levels(cand_c, lv_par) == key_par
 
         sel = np.nonzero(in_cell)[0]
         accepted = np.zeros(len(cand_c), bool)
@@ -738,7 +1128,7 @@ class Engine:
             v_in = views[work][src[sel]]
             oc, on, os_, ov, ok, col, _ = self._optimize(c_in, n_in, s_in, v_in)
             # still inside the parent cell after optimization (:262)
-            ok &= self._keys_at_levels(oc, lv_par[sel]) == key_par[sel]
+            ok &= self.tree.keys_at_levels(oc, lv_par[sel]) == key_par[sel]
             accepted[sel] = ok
 
         n_acc_per_cell = np.bincount(src[accepted], minlength=Bw)
@@ -767,7 +1157,7 @@ class Engine:
         rows = np.searchsorted(sel, acc)
         child_c = oc[rows]
         child_lv = (lv_par[acc] + 1).astype(np.int64)
-        child_key = self._keys_at_levels(child_c, child_lv)
+        child_key = self.tree.keys_at_levels(child_c, child_lv)
 
         # multiple children may share a child octant -> same cell
         # (multi-patch cells are filtered later, like the reference :291-299)
@@ -801,6 +1191,65 @@ class Engine:
         prs = (child_lv[first_of] + par_prio_red[first_of]) * 10
         self._push_many(prs, cell_ids)
         self.stats["branched"] += len(acc)
+        self._speculate_after_branch(cell_ids, prs)
+
+    def _speculate_after_branch(self, cell_ids, prs):
+        """Branch-boundary lookahead: the wave popped after a branch is the
+        children's first extend wave, whose membership -- the keeper patch
+        per child cell after the multi-patch filter -- is already fully
+        determined by the store state the branch just wrote. Simulate the
+        filter's keeper decision (_filter_keepers, side-effect free; the
+        real filter still runs, and subtracts/frees the losers, when the
+        wave pops) and dispatch the keepers' extend batch NOW. Freshness:
+        the filter's loser subtracts ride the following dispatch instead of
+        this one. Skipped when the children span several priorities or an
+        extend speculation is outstanding (its wave pops first); any
+        residual mismatch falls back via _spec_matches."""
+        if self._spec is not None or not self._lookahead_ok():
+            return
+        if len(cell_ids) == 0 or len(np.unique(prs)) != 1:
+            return
+        # simulate _pop_live(pr) WITHOUT popping: cells already queued at
+        # this priority pop together with the freshly pushed children
+        chunks = self.queue.get(int(prs[0]))
+        if not chunks:
+            return
+        cells = (np.concatenate(chunks) if len(chunks) > 1
+                 else np.asarray(chunks[0], np.int64))
+        _, first = np.unique(cells, return_index=True)
+        cells = cells[np.sort(first)]
+        self._ensure_heads()
+        cells = cells[self.tree.alive[cells] & (self.cell_head[cells] >= 0)]
+        if len(cells) == 0:
+            return
+        heads = self.cell_head[cells]
+        multi = self.patches.nxt[heads] >= 0
+        sim_head = heads.copy()
+        if multi.any():
+            keepers, _ = self._filter_keepers(cells[multi])
+            sim_head[multi] = keepers
+        # only the not-expanded heads form the extend subset
+        ext = ~self.patches.expanded[sim_head]
+        if not ext.any():
+            return
+        par = sim_head[ext]
+        cells_ext = cells[ext]
+        centers = self.patches.center[par]
+        normals = self.patches.normal[par]
+        views = self.patches.views[par]
+        prio_red = self.patches.prio_red[par]
+        _, widths = self.tree.cell_center_width(cells_ext)
+        levels = self.tree.node_level(cells_ext)
+        (c_in, n_in, s_in, v_in, p_in, w_in, src_sel, lv2,
+         pr2) = self._extend_candidates(centers, normals, views, prio_red,
+                                        widths, levels)
+        if len(c_in) == 0:
+            return
+        spec = {"src_sel": src_sel, "par_c": centers.copy(), "cand_c": c_in,
+                "lv_lanes": lv2, "pr_lanes": pr2, "levels": levels,
+                "prio_red": prio_red, "n_par": len(par),
+                "par_pids": np.asarray(par).copy()}
+        self._dispatch_spec(spec, c_in, n_in, s_in, v_in, p_in, w_in)
 
     # ------------------------------------------------------------------
     def have_work(self) -> bool:

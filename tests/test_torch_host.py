@@ -44,8 +44,8 @@ def test_options_fields_and_defaults():
     pf = {f.name: f.default for f in dataclasses.fields(POptions)}
     assert list(jf) == list(pf)
     differ = {k for k in jf if jf[k] != pf[k]}
-    assert differ == {"WAVE_DEPTH", "WAVE_LOOKAHEAD"}
-    assert pf["WAVE_DEPTH"] == 1 and pf["WAVE_LOOKAHEAD"] is False
+    assert differ == set()
+    assert pf["WAVE_DEPTH"] == 4 and pf["WAVE_LOOKAHEAD"] is True
     assert POptions().max_prio == JOptions().max_prio
     assert POptions().n_levels == JOptions().n_levels
 

@@ -88,13 +88,26 @@ def tiny_plane():
     return make_plane_scene(n_cams=4, imgsize=64, n_points=10, seed=2)
 
 
-@pytest.mark.parametrize("kw", [dict(WAVE_DEPTH=4), dict(WAVE_LOOKAHEAD=True)])
+@pytest.mark.parametrize("kw", [dict(WAVE_DEPTH=4, WAVE_LOOKAHEAD=True),
+                                dict(WAVE_DEPTH=1, WAVE_LOOKAHEAD=True)])
 def test_unported_options_raise(tiny_plane, kw):
-    """Deep waves and wave lookahead are the engine modes still refused."""
+    """Deep waves (which ride the lookahead's speculative dispatches) and
+    wave lookahead alone build an engine that raises nothing and runs the
+    tiny plane to completion."""
     from hpmvs_tpu_torch.runtime.wavefront import Engine
-    with pytest.raises(NotImplementedError):
-        Engine(tiny_plane.model, plane_options(POptions, **kw),
-               images=tiny_plane.images, device="cpu")
+    opt = plane_options(POptions, **kw)
+    eng = Engine(tiny_plane.model, opt, images=tiny_plane.images,
+                 device="cpu")
+    eng.seed()
+    for prio in range(opt.max_prio):
+        eng.process_priority_step(prio)
+        if not eng.have_work():
+            break
+    assert not eng.have_work() and eng.n_alive() > 0
+    if opt.WAVE_DEPTH > 1:
+        assert eng.stats["disp_deep"] > 0
+    else:
+        assert eng.stats["lookahead_hits"] > 0
 
 
 @pytest.mark.parametrize("kw", [dict(LM_EXACT_J=False),
@@ -105,7 +118,7 @@ def test_unported_options_raise(tiny_plane, kw):
                                 dict(USE_PALLAS_GN=False)])
 def test_ported_options_build_an_engine(tiny_plane, kw):
     """Every optimizer option (stage pipeline, refiner, GN mode) builds an
-    engine; only the WAVE_* engine modes are refused."""
+    engine."""
     from hpmvs_tpu_torch.runtime.wavefront import Engine
     eng = Engine(tiny_plane.model, plane_options(POptions, **kw),
                  images=tiny_plane.images, device="cpu")

@@ -387,8 +387,9 @@ def test_exactref_fd_twin_calls(S):
 def test_engine_exactref_fd_matches_jax_engine(tmp_path):
     ps = make_plane_scene(n_cams=4, imgsize=128, n_points=30, seed=2)
     kw = dict(FAST_SETREF=False, LM_EXACT_J=False)
-    jo = plane_options(JOptions, WAVE_DEPTH=1, WAVE_LOOKAHEAD=False,
-                       OUTFOLDER=str(tmp_path / "jax"), **kw)
+    # both engines classic (one wave per dispatch, no lookahead)
+    kw.update(WAVE_DEPTH=1, WAVE_LOOKAHEAD=False)
+    jo = plane_options(JOptions, OUTFOLDER=str(tmp_path / "jax"), **kw)
     po = plane_options(POptions, OUTFOLDER=str(tmp_path / "port"), **kw)
     mp = pytest.MonkeyPatch()
     try:

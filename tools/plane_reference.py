@@ -1,14 +1,25 @@
 """Reference counts for chip_smoke.py's plane phases, measured on the CPU.
 
-Runs the JAX package's engine (single device, WAVE_DEPTH=1, no lookahead)
-on chip_smoke.py's plane scene and Options -- bench.py's plane: 7 cameras x
-512 px, 400 SfM points, START_LEVEL=2, MAX_VIEWS=8, COVIS_MIN_POINTS=30 --
-with the given Options switches, and prints one JSON line: alive patches,
-the fraction within 0.02 of the plane, patches optimised, wall seconds.
-With --port it runs hpmvs_tpu_torch on the CPU (its kernels' twins) too.
+Runs the JAX package's engine (single device) on chip_smoke.py's plane
+scene and Options -- bench.py's plane: 7 cameras x 512 px, 400 SfM points,
+START_LEVEL=2, MAX_VIEWS=8, COVIS_MIN_POINTS=30 -- with the given Options
+switches, and prints one JSON line: alive patches, the fraction within 0.02
+of the plane, patches optimised, wall seconds, dispatches and the wave
+counters. The wave switches default to the JAX package's defaults
+(WAVE_DEPTH=4, WAVE_LOOKAHEAD=True); --wave_depth 1 --no_lookahead gives the
+classic engine. With --port it runs hpmvs_tpu_torch on the CPU (its kernels'
+twins) with the same switches too. --scene picks another scene: "small",
+the small plane of the port's engine tests (tests/torch_parity.py: 4
+cameras x 128 px, 30 points, START_LEVEL=1, MAXLEVEL=3, MAX_VIEWS=6,
+COVIS_MIN_POINTS=10, LM_ITERS=6), whose JAX counts
+tests/test_torch_deepwave.py pins; "facade", tests/test_facade.py's facade
+(11 cameras x 256 px, 160 points, START_LEVEL=2, MAX_VIEWS=8,
+COVIS_MIN_POINTS=10, MAX_TREE_LEVEL=8, PATCH_FINAL_MINLEVEL=4, images in
+memory), its accuracy the fraction within 0.02 of the wedge.
 
     JAX_PLATFORMS=cpu python tools/plane_reference.py FAST_SETREF=False \\
-        LM_EXACT_J=False [--port] [--kernel]
+        LM_EXACT_J=False [--wave_depth N] [--no_lookahead] [--port] [--kernel]
+        [--scene plane|small|facade]
 
 On the CPU the JAX engine refines with its plain XLA refiner
 (optimizer._optimize_patch), not with its GN kernel: with LM_EXACT_J=False
@@ -30,22 +41,38 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-PLANE = dict(START_LEVEL=2, MAX_VIEWS=8, COVIS_MIN_POINTS=30)
+# scene -> (make_*_scene keywords, Options)
+SCENES = {
+    "plane": (dict(n_cams=7, imgsize=512, n_points=400, seed=0),
+              dict(START_LEVEL=2, MAX_VIEWS=8, COVIS_MIN_POINTS=30)),
+    "small": (dict(n_cams=4, imgsize=128, n_points=30, seed=2),
+              dict(START_LEVEL=1, MAXLEVEL=3, MAX_VIEWS=6,
+                   COVIS_MIN_POINTS=10, LM_ITERS=6)),
+    "facade": (dict(n_cams=11, imgsize=256, n_points=160, seed=0),
+               dict(START_LEVEL=2, MAX_VIEWS=8, COVIS_MIN_POINTS=10,
+                    MAX_TREE_LEVEL=8, PATCH_FINAL_MINLEVEL=4)),
+}
+WAVE_STATS = ("dispatches", "lookahead_hits", "lookahead_misses",
+              "disp_deep", "deep_gens_consumed", "deep_fallbacks",
+              "spec_waste_lanes")
 
 
-def _run(pipeline_mod, options_cls, ps, switches, out, **kw):
-    opt = dataclasses.replace(options_cls(), **PLANE, **switches,
+def _run(pipeline_mod, options_cls, ps, dist, base, switches, out, **kw):
+    opt = dataclasses.replace(options_cls(), **base, **switches,
                               OUTFOLDER=out)
     t = time.time()
     eng = pipeline_mod.run(ps.model, opt, images=ps.images, **kw)
     wall = time.time() - t
-    import numpy as np
     c = eng.alive_arrays()[0]
+    st = eng.stats
     return dict(alive=int(eng.n_alive()),
-                frac_within_002=float((np.abs(c[:, 2] - ps.plane_z)
-                                       < 0.02).mean()),
-                patches_optimized=int(eng.stats["patches_optimized"]),
-                wall_s=wall)
+                frac_within_002=float((dist(c) < 0.02).mean()),
+                patches_optimized=int(st["patches_optimized"]),
+                wall_s=wall, hist=[int(x) for x in eng.tree.histogram()],
+                **{k: int(st[k]) for k in WAVE_STATS},
+                deep_fb=[int(st[k]) for k in ("deep_fb_overflow",
+                                              "deep_fb_mismatch",
+                                              "deep_fb_dead")])
 
 
 def main(argv=None):
@@ -53,9 +80,14 @@ def main(argv=None):
     ap.add_argument("switches", nargs="*", help="Options NAME=VALUE")
     ap.add_argument("--port", action="store_true",
                     help="also run hpmvs_tpu_torch on the CPU")
+    ap.add_argument("--wave_depth", type=int, default=None,
+                    help="WAVE_DEPTH (default: the JAX package's)")
+    ap.add_argument("--no_lookahead", action="store_true",
+                    help="WAVE_LOOKAHEAD=False (default: the JAX package's)")
     ap.add_argument("--kernel", action="store_true",
                     help="JAX engine on its TPU path: the GN kernel in "
                          "interpret mode")
+    ap.add_argument("--scene", choices=sorted(SCENES), default="plane")
     args = ap.parse_args(argv)
     switches = {k: ast.literal_eval(v) for k, v in
                 (s.split("=", 1) for s in args.switches)}
@@ -70,18 +102,33 @@ def main(argv=None):
         jopt._use_pallas_gn = lambda opt: opt.USE_PALLAS_GN and opt.USE_WINDOWS
         pallas_gn.gn_refine_batch = functools.partial(
             pallas_gn.gn_refine_batch, interpret=True)
-    from hpmvs_tpu.testing import make_plane_scene
-    ps = make_plane_scene(n_cams=7, imgsize=512, n_points=400, seed=0)
+    import numpy as np
+    from hpmvs_tpu import testing
+    jdef = JOptions()
+    switches["WAVE_DEPTH"] = (jdef.WAVE_DEPTH if args.wave_depth is None
+                              else args.wave_depth)
+    switches["WAVE_LOOKAHEAD"] = (jdef.WAVE_LOOKAHEAD
+                                  and not args.no_lookahead)
+    scene_kw, base = SCENES[args.scene]
+    if args.scene == "facade":
+        ps = testing.make_facade_scene(**scene_kw)
+
+        def dist(c):
+            return testing.facade_surface_dist(c, ps.slope)
+    else:
+        ps = testing.make_plane_scene(**scene_kw)
+
+        def dist(c):
+            return np.abs(c[:, 2] - ps.plane_z)
     tmp = tempfile.mkdtemp(prefix="plane_reference_")
-    res = {"switches": switches,
+    res = {"scene": args.scene, "switches": switches,
            "jax_kernel_interpret" if args.kernel else "jax_cpu": _run(
-        jpipe, JOptions, ps, dict(switches, WAVE_DEPTH=1,
-                                  WAVE_LOOKAHEAD=False),
-        os.path.join(tmp, "jax"), mesh=None)}
+        jpipe, JOptions, ps, dist, base, switches, os.path.join(tmp, "jax"),
+        mesh=None)}
     if args.port:
         from hpmvs_tpu_torch.config import Options as POptions
         from hpmvs_tpu_torch.runtime import pipeline as ppipe
-        res["port_cpu"] = _run(ppipe, POptions, ps, switches,
+        res["port_cpu"] = _run(ppipe, POptions, ps, dist, base, switches,
                                os.path.join(tmp, "port"), device="cpu")
     print(json.dumps(res), flush=True)
 
