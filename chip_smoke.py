@@ -87,12 +87,47 @@ Phases, each printing one JSON line:
                  10% of the JAX engine's on the CPU, the shares within 0.02
                  and within 4 ground sample distances of the plane at most
                  0.02 below its.
-Phases 8-10, 13 and 14 launch the default path's kernels and no twin;
-phase 11 solves and replays the z-buffer only.
+ The single-process multi-device system, its mesh shards all on the card
+ (the counterpart of the JAX tests' virtual devices; no multi-GPU speed is
+ measured or claimed), each held to the JAX engine on the same number of
+ virtual CPU devices (tools/plane_reference.py --shards):
+ 15. facade_ba_sharded -- right after facade_ba_dense, on its problem
+                 with BA_SHARDED_NOISE_PX of noise on the observations (the
+                 optimum then depends on every measurement): shard_problem
+                 + ba_solve_sharded over 8 shards against two unsharded
+                 solves with the same two anchors, the RMS history within
+                 BA_SHARDED_RMS_RTOL, cameras and points within
+                 BA_SHARDED_CAM_TOL / BA_SHARDED_PTS_TOL; the unsharded
+                 run-to-run spreads, solve ms and peak memory.
+ 16. plane_mesh -- bench.py's plane through pipeline.run over a 4-shard
+                 mesh (lookahead on, no deep waves): alive within 10% of
+                 the JAX mesh engine's, >= 0.95 within 0.02, the shards'
+                 z-buffer replicas equal.
+ 17. plane_spatial -- tests/test_spatial.py's plane (7 x 512 px, 200
+                 points) and Options on the spatial engine over 8 shards
+                 (64 Morton blocks): alive within 10% of the JAX spatial
+                 engine's, >= 0.95 within 0.02, migrated > 0 and every
+                 migrated patch arrived; block balance, halo hops, wire
+                 against logical bytes.
+ 18. ring_spatial_subsets -- the ring plane on the spatial engine over 8
+                 shards with per-shard image slabs: slab_miss 0, fewer rows
+                 per shard than the replicated pack, alive and shares held
+                 as ring_plane's to the JAX engine in the same mode; the
+                 fetch kernel on the busiest shard's committed slab
+                 bit-equal to its twin; cameras per shard, rebuilds, the
+                 slabs' bytes (their sum on one card can exceed the
+                 replicated pack) and peak memory.
+ 19. plane_stream_spatial -- plane_spatial's plane streamed in two chunks
+                 (cameras 0-3, then 4-6) into a 4-shard spatial engine with
+                 image subsets: the old z-buffer prefix unchanged across the
+                 extension, alive within 10% of plane_spatial's.
+Phases 8-10, 13, 14 and 16-19 launch the default path's kernels and no
+twin (each prints its launches per kernel and its twin calls); phases 11
+and 15 solve and replay the z-buffer only.
 Any failed check raises (exit code 1). The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels (ms is
 device_ms; call_ms beside it; launches from the plane at the defaults, gn_fd
-from plane_exactref_fd).
+from plane_exactref_fd; launches_by_phase from phases 16-19).
 
 python3 chip_smoke.py --profile instead builds the kernels and runs the
 plane at the defaults and on the classic engine in turns (default, classic,
@@ -670,6 +705,23 @@ def plane_ba_dense_every_phase(device):
     check(rms < 0.02, f"plane_ba_dense_every: RMS {rms} to the plane")
 
 
+def facade_ba_problem(device, eng):
+    """The dense BA problem of the engine's cloud: every camera but the two
+    anchors perturbed (tests/test_ba.py:182-186), the observations those
+    of the true cameras. Returns (perturbed model, problem)."""
+    import numpy as np
+    from hpmvs_tpu_torch.parallel import ba
+    from hpmvs_tpu_torch.testing import perturb_model
+    p = eng.patches
+    pids = np.nonzero(p.alive[:p.n])[0]
+    c, v = p.center[pids], p.views[pids]
+    obs = ba.build_dense_problem(eng.model, c, v, device=device)
+    pert = perturb_model(eng.model, np.random.default_rng(5), rot=0.004,
+                         trans=0.01, pts=0.0, keep=2)
+    return pert, ba.build_dense_problem(pert, c, v, device=device)._replace(
+        m_uv=obs.m_uv)
+
+
 def facade_ba_dense_phase(device, eng):
     """Cameras+patches BA on the facade phase's final cloud: every camera
     but the two anchors perturbed (tests/test_ba.py:182-186), the solve
@@ -683,21 +735,12 @@ def facade_ba_dense_phase(device, eng):
     import torch
     from hpmvs_tpu_torch import kernels
     from hpmvs_tpu_torch.parallel import ba
-    from hpmvs_tpu_torch.testing import perturb_model
     kernels.reset_counts()
-    true_model = eng.model
-    true_c = np.asarray([c.c for c in true_model.cameras])
-    p = eng.patches
-    pids = np.nonzero(p.alive[:p.n])[0]
-    c, v = p.center[pids], p.views[pids]
+    true_c = np.asarray([c.c for c in eng.model.cameras])
     t = time.time()
-    obs = ba.build_dense_problem(true_model, c, v, device=device)
-    pert = perturb_model(true_model, np.random.default_rng(5), rot=0.004,
-                         trans=0.01, pts=0.0, keep=2)
-    prob = ba.build_dense_problem(pert, c, v, device=device)._replace(
-        m_uv=obs.m_uv)
+    pert, prob = facade_ba_problem(device, eng)
     build_s = time.time() - t
-    n_cams, n_pts, iters, cg = len(pert.cameras), len(pids), 8, 40
+    n_cams, n_pts, iters, cg = (len(pert.cameras), len(prob.pts0), 8, 40)
     pre = np.linalg.norm(np.asarray([x.c for x in pert.cameras]) - true_c,
                          axis=1)
 
@@ -752,6 +795,7 @@ def facade_ba_dense_phase(device, eng):
           f"facade_ba_dense: centre error {np.median(pre[2:])} -> "
           f"{np.median(post[2:])}")
     check(filled > 0, "facade_ba_dense: the z-buffer was not replayed")
+    return prob, n_cams, n_pts, iters, cg
 
 
 def facade_stream_phase(device, sc):
@@ -919,6 +963,462 @@ def ring_plane_phase(device):
           f"{RING_JAX_CPU_WITHIN_4GSD} (JAX)")
 
 
+# ----------------------------------------------------------------------
+# the single-process multi-device system: several mesh shards on the card
+# ----------------------------------------------------------------------
+# hpmvs_tpu on the CPU over virtual devices, measured by
+# tools/plane_reference.py (Options as the phases below):
+#   --shards 4: bench.py's plane on a 4-device mesh engine (lookahead on,
+#   no deep waves under a mesh) -- 15743 alive, 1.000 within 0.02;
+#   --scene plane200 --shards 8 --spatial: tests/test_spatial.py's plane
+#   and Options on the 8-shard spatial engine -- 19973 alive, 1.000 within
+#   0.02, 6296 migrated (all arrived);
+#   --scene ring --shards 8 --spatial --image_subsets: the ring plane on
+#   the 8-shard spatial engine with image subsets -- 62175 alive, 0.7530
+#   within 0.02, 0.9271 within 4 GSD, slab_miss 0.
+PLANE_MESH_SHARDS = 4
+PLANE_MESH_JAX_CPU_ALIVE = 15743
+SPATIAL_SHARDS = 8
+SPATIAL_OPT = dict(START_LEVEL=2, MAXLEVEL=4, COVIS_MIN_POINTS=10,
+                   MAX_TREE_LEVEL=8, WAVE_LOOKAHEAD=False)
+PLANE_SPATIAL_JAX_CPU_ALIVE = 19973
+RING_SUBSETS_JAX_CPU_ALIVE = 62175
+RING_SUBSETS_JAX_CPU_WITHIN_002 = 0.7530
+RING_SUBSETS_JAX_CPU_WITHIN_4GSD = 0.9271
+RING_SUBSETS_BUDGET_S = 150.0
+PLANE_SPATIAL_BUDGET_S = 120.0
+STREAM_SPATIAL_SHARDS = 4
+STREAM_SPATIAL_BUDGET_S = 120.0
+BA_SHARDED_SHARDS = 8
+# ba_solve_sharded against ba_solve on the same noisy problem and anchors:
+# the noise (pixels, per coordinate); the largest relative difference of
+# the first RMS entry (the same sums in another order) and of any entry;
+# the largest camera-parameter and point differences. The last three are
+# ~10x what two ba_solve runs differ by on the facade (the order of the
+# atomic sums: 1.8e-4, 9.8e-7 and 2.2e-6 on an NVIDIA H100 80GB HBM3,
+# 700.00 W)
+BA_SHARDED_NOISE_PX = 0.5
+BA_SHARDED_RMS0_RTOL = 1e-6
+BA_SHARDED_RMS_RTOL = 2e-3
+BA_SHARDED_CAM_TOL = 1e-5
+BA_SHARDED_PTS_TOL = 3e-5
+SPATIAL_STATS = ("dispatches", "migrated", "halo_arrivals",
+                 "migrated_inserted", "halo_rounds", "halo_hops",
+                 "halo_bytes_wire", "halo_bytes_logical", "block_work_lanes",
+                 "block_pad_lanes", "block_balance_den", "rebalances",
+                 "subset_rebuilds", "subset_rows_per_block",
+                 "subset_rows_replicated", "subset_cams_max",
+                 "subset_cams_mean", "subset_block_cams_mean", "slab_miss",
+                 "subset_pending_overrides", "subset_bound_overrides")
+
+
+def shard_mesh(device, n):
+    """n mesh shards on one device (the counterpart of the JAX tests'
+    virtual devices)."""
+    from hpmvs_tpu_torch.parallel import mesh as pmesh
+    return pmesh.make_mesh([device] * n)
+
+
+def spatial_stats(eng):
+    st = eng.stats
+    out = {k: (float(st[k]) if isinstance(st[k], float) else int(st[k]))
+           for k in SPATIAL_STATS if k in st}
+    # the ideal equal split's lanes over the busiest shard's, summed over
+    # the dispatch rounds: the spatial decomposition's efficiency
+    out["block_balance"] = (st["block_work_lanes"]
+                            / max(st["block_balance_den"], 1))
+    return out
+
+
+def run_loop(eng, opt, budget):
+    """Seed and drain the priority steps under a wall budget; returns
+    (loop seconds, last priority)."""
+    import torch
+    t = time.time()
+    eng.seed()
+    for prio in range(opt.max_prio):
+        eng.process_priority_step(prio)
+        if not eng.have_work() or time.time() - t > budget:
+            break
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    return time.time() - t, prio
+
+
+def plane_mesh_phase(device):
+    """bench.py's plane through pipeline.run over a 4-shard mesh on the
+    card: every extend chunk split over the shards, one z-buffer replica
+    each; lookahead on, no deep waves (as in the JAX mesh engine)."""
+    import numpy as np
+    import torch
+    from hpmvs_tpu_torch import kernels
+    from hpmvs_tpu_torch.runtime import pipeline
+    opt, ps, _, _ = plane_setup(device)
+    opt = dataclasses.replace(opt, OUTFOLDER=os.path.join(OUT_DIR,
+                                                          "plane_mesh"))
+    mesh = shard_mesh(device, PLANE_MESH_SHARDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t = time.time()
+    eng = pipeline.run(ps.model, opt, images=ps.images, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches, twins = launch_counts()
+    c = eng.alive_arrays()[0]
+    frac = float((np.abs(c[:, 2] - ps.plane_z) < 0.02).mean())
+    reps_equal = all(torch.equal(r, eng.pack.depth)
+                     for r in eng._replicas())
+    n_opt = int(eng.stats["patches_optimized"])
+    emit("plane_mesh", shards=mesh.size, mesh_shape=list(mesh.shape),
+         wall_s=wall, loop_s=float(eng.stats["proc_time"]),
+         alive=eng.n_alive(), jax_cpu_alive=PLANE_MESH_JAX_CPU_ALIVE,
+         frac_within_002=frac, patches_optimized=n_opt,
+         patches_per_s=n_opt / wall, replicas_equal=reps_equal,
+         hist=[int(x) for x in eng.tree.histogram()],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, twin_calls=twins, **wave_stats(eng))
+    check_path("plane_mesh", "default", launches, twins)
+    check(ws_ok(eng), f"plane_mesh: lookahead {wave_stats(eng)}")
+    check(reps_equal, "plane_mesh: the shards' z-buffer replicas differ")
+    check(frac >= 0.95, f"plane_mesh: {frac} of patches within 0.02")
+    check(abs(eng.n_alive() - PLANE_MESH_JAX_CPU_ALIVE)
+          <= 0.1 * PLANE_MESH_JAX_CPU_ALIVE,
+          f"plane_mesh: {eng.n_alive()} alive vs "
+          f"{PLANE_MESH_JAX_CPU_ALIVE} (JAX)")
+    return launches
+
+
+def ws_ok(eng):
+    """Under a mesh: no deep dispatch, the lookahead hitting."""
+    ws = wave_stats(eng)
+    return ws["disp_deep"] == 0 and ws["lookahead_hits"] > \
+        ws["lookahead_misses"]
+
+
+def plane_spatial_phase(device):
+    """tests/test_spatial.py's plane (7 cameras x 512 px, 200 points) and
+    Options on the spatial engine over 8 shards: Morton blocks re-binned
+    onto shards every round, border patches migrated by ragged halo
+    hops."""
+    import numpy as np
+    import torch
+    from hpmvs_tpu_torch import kernels
+    from hpmvs_tpu_torch.config import Options
+    from hpmvs_tpu_torch.runtime.spatial import SpatialEngine
+    from hpmvs_tpu_torch.testing import make_plane_scene
+    ps = make_plane_scene(n_cams=7, imgsize=512, n_points=200, seed=0)
+    opt = dataclasses.replace(Options(), **SPATIAL_OPT)
+    mesh = shard_mesh(device, SPATIAL_SHARDS)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    budget = budget_left(PLANE_SPATIAL_BUDGET_S)
+    check(budget > 30.0, f"plane_spatial: only {budget:.0f} s left")
+    eng = SpatialEngine(ps.model, opt, images=ps.images, mesh=mesh)
+    wall, prio = run_loop(eng, opt, budget)
+    launches, twins = launch_counts()
+    c = eng.alive_arrays()[0]
+    frac = float((np.abs(c[:, 2] - ps.plane_z) < 0.02).mean())
+    sp = spatial_stats(eng)
+    n_opt = int(eng.stats["patches_optimized"])
+    emit("plane_spatial", shards=mesh.size, blocks=eng.n_blocks,
+         block_level=eng.block_level, loop_wall_s=wall, budget_s=budget,
+         finished=not eng.have_work(), loop_stopped_at_prio=prio,
+         alive=eng.n_alive(), jax_cpu_alive=PLANE_SPATIAL_JAX_CPU_ALIVE,
+         frac_within_002=frac, patches_optimized=n_opt,
+         patches_per_s=n_opt / max(wall, 1e-9),
+         hist=[int(x) for x in eng.tree.histogram()],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, twin_calls=twins, **sp)
+    check_path("plane_spatial", "default", launches, twins)
+    check(not eng.have_work(), "plane_spatial: the run did not finish")
+    check(sp["migrated"] > 0, "plane_spatial: no patch migrated")
+    check(sp["halo_arrivals"] == sp["migrated"],
+          f"plane_spatial: {sp['halo_arrivals']} arrivals of "
+          f"{sp['migrated']} migrated")
+    check(frac >= 0.95, f"plane_spatial: {frac} of patches within 0.02")
+    check(abs(eng.n_alive() - PLANE_SPATIAL_JAX_CPU_ALIVE)
+          <= 0.1 * PLANE_SPATIAL_JAX_CPU_ALIVE,
+          f"plane_spatial: {eng.n_alive()} alive vs "
+          f"{PLANE_SPATIAL_JAX_CPU_ALIVE} (JAX)")
+    return launches, eng.n_alive()
+
+
+def ring_spatial_subsets_phase(device):
+    """make_ring_plane_scene at its defaults (150 cameras x 128 px) with
+    RING_OPT on the spatial engine over 8 shards with image subsets: each
+    shard's fetch kernel reads its own slab. Then the fetch kernel on the
+    busiest shard's committed slab, at the windows its resident patches
+    cut there, against its twin (bit-equal) and the full pack's windows.
+    One card holds every shard's slab: their sum can exceed the replicated
+    pack (a mesh of several cards divides it)."""
+    import numpy as np
+    import torch
+    from hpmvs_tpu_torch import kernel_check, kernels
+    from hpmvs_tpu_torch.config import Options
+    from hpmvs_tpu_torch.image.pyramid import ImagePack
+    from hpmvs_tpu_torch.runtime.spatial import SpatialEngine
+    from hpmvs_tpu_torch.testing import make_ring_plane_scene
+    sc = make_ring_plane_scene()
+    opt = dataclasses.replace(Options(), **RING_OPT)
+    mesh = shard_mesh(device, SPATIAL_SHARDS)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    budget = budget_left(RING_SUBSETS_BUDGET_S)
+    check(budget > 30.0, f"ring_spatial_subsets: only {budget:.0f} s left")
+    eng = SpatialEngine(sc.model, opt, images=sc.images, mesh=mesh,
+                        image_subsets=True)
+    wall, prio = run_loop(eng, opt, budget)
+    peak = torch.cuda.max_memory_allocated()
+    launches, twins = launch_counts()
+    c = eng.alive_arrays()[0]
+    d = np.abs(c[:, 2] - sc.plane_z)
+    frac, frac_4gsd = float((d < 0.02).mean()), float((d < 4 * RING_GSD)
+                                                      .mean())
+    sp = spatial_stats(eng)
+    check(eng._bpack_dev is not None and eng.n_alive() > 0,
+          "ring_spatial_subsets: no slab was committed")
+    slab_bytes = [int(s.tex.numel() * 4) for s in eng._bpack_dev]
+    full_bytes = int(eng.scene.ctx.imgs.tex.numel() * 4)
+    # the fetch kernel on the busiest shard's committed slab
+    s = int(np.argmax(eng._committed_mask.sum(1)))
+    p = eng.patches
+    pids = np.nonzero(p.alive[:p.n])[0]
+    pids = pids[eng.block_shard[eng.block_of_points(p.center[pids])] == s]
+    pids = pids[:2048]
+    imgs = eng.scene.ctx.imgs
+    full = ImagePack(tex=imgs.tex.to(device), row0=imgs.row0,
+                     width=imgs.width, height=imgs.height)
+    ci = torch.as_tensor(p.views[pids], device=device)
+    cen = torch.as_tensor(p.center[pids], device=device)[:, None].expand(
+        ci.shape + (3,))
+    scl = torch.as_tensor(p.scale[pids], device=device)[:, None].expand(
+        ci.shape)
+    slab_check = kernel_check.check_fetch_slab(
+        eng.scene.ctx.cams, eng._bpack_dev[s], full, ci, cen, scl,
+        opt.MAXLEVEL - 1, opt.WINDOW_SIZE)
+    del full
+    n_opt = int(eng.stats["patches_optimized"])
+    emit("ring_spatial_subsets", shards=mesh.size, blocks=eng.n_blocks,
+         cameras=len(sc.model.cameras), imgsize=sc.imgsize,
+         options=RING_OPT, loop_wall_s=wall, budget_s=budget,
+         finished=not eng.have_work(), loop_stopped_at_prio=prio,
+         alive=eng.n_alive(), jax_cpu_alive=RING_SUBSETS_JAX_CPU_ALIVE,
+         frac_within_002=frac, frac_within_4gsd=frac_4gsd,
+         jax_cpu_within_002=RING_SUBSETS_JAX_CPU_WITHIN_002,
+         jax_cpu_within_4gsd=RING_SUBSETS_JAX_CPU_WITHIN_4GSD,
+         patches_optimized=n_opt, patches_per_s=n_opt / max(wall, 1e-9),
+         cams_per_shard=[int(x) for x in eng._committed_mask.sum(1)],
+         slab_bytes=slab_bytes, slabs_sum_bytes=sum(slab_bytes),
+         replicated_pack_bytes=full_bytes, max_memory_allocated=peak,
+         slab_fetch=dict(shard=s, patches=len(pids), **slab_check),
+         hist=[int(x) for x in eng.tree.histogram()],
+         launches=launches, twin_calls=twins, **sp)
+    check_path("ring_spatial_subsets", "default", launches, twins)
+    check(not eng.have_work(), "ring_spatial_subsets: the run did not "
+                               "finish")
+    check(sp["slab_miss"] == 0,
+          f"ring_spatial_subsets: slab_miss {sp['slab_miss']}")
+    check(sp["subset_rows_per_block"] < sp["subset_rows_replicated"],
+          f"ring_spatial_subsets: {sp['subset_rows_per_block']} rows per "
+          f"shard vs {sp['subset_rows_replicated']} replicated")
+    check(slab_check["equal_twin"] and slab_check["equal_full"],
+          f"ring_spatial_subsets: the fetch kernel on a slab: {slab_check}")
+    check(abs(eng.n_alive() - RING_SUBSETS_JAX_CPU_ALIVE)
+          <= 0.1 * RING_SUBSETS_JAX_CPU_ALIVE,
+          f"ring_spatial_subsets: {eng.n_alive()} alive vs "
+          f"{RING_SUBSETS_JAX_CPU_ALIVE} (JAX)")
+    check(frac >= RING_SUBSETS_JAX_CPU_WITHIN_002 - 0.02,
+          f"ring_spatial_subsets: {frac} within 0.02")
+    check(frac_4gsd >= RING_SUBSETS_JAX_CPU_WITHIN_4GSD - 0.02,
+          f"ring_spatial_subsets: {frac_4gsd} within 4 GSD")
+    return launches
+
+
+def noisy_ba_problem(prob, device):
+    """prob with BA_SHARDED_NOISE_PX of Gaussian noise (seed 7) on every
+    observation: the optimum then depends on every measurement, so a
+    sharded solve that loses or repeats a shard's partial sums moves it."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(7)
+    return prob._replace(m_uv=prob.m_uv + BA_SHARDED_NOISE_PX * torch.randn(
+        prob.m_uv.shape, generator=gen, device=device))
+
+
+def ba_shard_agreement(ref, out):
+    """A sharded solve `out` against the unsharded `ref` (both (cameras,
+    points, RMS history)): the relative difference of the first RMS entry
+    (the RMS over every shard's measurements at the start, the same sums
+    in another order) and of the whole history, the largest camera and
+    point differences, and whether all four are inside their tolerances."""
+    h1 = ref[2][:len(out[2])]
+    rel = ((out[2] - h1).abs() / h1).cpu()
+    m = dict(rms0_rel_diff=float(rel[0]), rms_max_rel_diff=float(rel.max()),
+             cam_max_abs_diff=float((out[0] - ref[0]).abs().max()),
+             pts_max_abs_diff=float((out[1] - ref[1]).abs().max()))
+    m["agree"] = (len(out[2]) == len(ref[2]) - 1
+                  and m["rms0_rel_diff"] <= BA_SHARDED_RMS0_RTOL
+                  and m["rms_max_rel_diff"] <= BA_SHARDED_RMS_RTOL
+                  and m["cam_max_abs_diff"] <= BA_SHARDED_CAM_TOL
+                  and m["pts_max_abs_diff"] <= BA_SHARDED_PTS_TOL)
+    return m
+
+
+def facade_ba_sharded_phase(device, solved):
+    """facade_ba_dense's problem (its perturbed cameras, two anchors) made
+    noisy (noisy_ba_problem), solved twice by ba_solve (the run-to-run
+    spread of the atomic sums) and by shard_problem + ba_solve_sharded over
+    8 shards, where every per-camera and per-point sum is a sum of the
+    shards' partial sums: the RMS history, the cameras and the points must
+    agree with the first unsharded solve (ba_shard_agreement).
+    tools/ba_shard_faults.py shows that the check fails when mesh.psum
+    drops a shard or counts one twice."""
+    import torch
+    from hpmvs_tpu_torch import kernels
+    from hpmvs_tpu_torch.parallel import ba
+    prob, n_cams, n_pts, iters, cg = solved
+    kernels.reset_counts()
+    prob = noisy_ba_problem(prob, device)
+    mesh = shard_mesh(device, BA_SHARDED_SHARDS)
+    t = time.time()
+    sp = ba.shard_problem(prob, mesh.size)
+    shard_s = time.time() - t
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    def unsharded():
+        return ba.ba_solve(prob, n_cams, n_pts, iters=iters, cg_iters=cg,
+                           fix_count=2, device=device)
+
+    def sharded():
+        return ba.ba_solve_sharded(mesh, sp, n_cams, n_pts, iters=iters,
+                                   cg_iters=cg, fix_count=2)
+
+    ref, ms1 = timed(unsharded)
+    again, _ = timed(unsharded)
+    timed(sharded)                           # warm-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, ms = timed(sharded)
+    peak = torch.cuda.max_memory_allocated() - base
+    spread = ba_shard_agreement(ref, (again[0], again[1], again[2][:-1]))
+    agree = ba_shard_agreement(ref, out)
+    hs = [float(x) for x in out[2].cpu()]
+    launches, twins = launch_counts()
+    emit("facade_ba_sharded", shards=mesh.size, patches=n_pts,
+         measurements=int(prob.m_cam.shape[0]),
+         padded_measurements=int(sp.m_cam.shape[0]), gn_iters=iters,
+         cg_iters=cg, noise_px=BA_SHARDED_NOISE_PX, shard_problem_s=shard_s,
+         solve_ms=ms, unsharded_solve_ms=ms1, solve_peak_bytes=peak,
+         rms_hist=hs, unsharded_rms_hist=[float(x) for x in ref[2].cpu()],
+         **agree, unsharded_spread=spread,
+         tolerances=dict(rms0_rel=BA_SHARDED_RMS0_RTOL,
+                         rms_rel=BA_SHARDED_RMS_RTOL,
+                         cam_abs=BA_SHARDED_CAM_TOL,
+                         pts_abs=BA_SHARDED_PTS_TOL),
+         launches=launches, twin_calls=twins)
+    check(not any(twins.values()), f"facade_ba_sharded: a twin ran: {twins}")
+    check(agree["agree"], f"facade_ba_sharded: the sharded solve differs "
+                          f"from the unsharded one: {agree}")
+    check(hs[-1] < hs[0] / 5.0, f"facade_ba_sharded: RMS {hs}")
+
+
+def plane_stream_spatial_phase(device, spatial_alive):
+    """plane_spatial's plane and Options streamed in two chunks into a
+    4-shard spatial engine with image subsets: cameras 0-3 with the points
+    they see at least twice, less every other point of the plane's central
+    region, one octree level, then cameras 4-6 with the rest, then to
+    completion: the old z-buffer is an unchanged prefix right after the
+    extension, and the alive count within 10% of the one-shot
+    plane_spatial run's. The second chunk's seeds lie inside the first
+    chunk's root cube, which holds the plane's outer points as the one-shot
+    run's does: the final density is resolution-bound at a cell size, so
+    another cube (a reroot doubles it) would change the count by its width
+    ratio squared (facade_stream exercises the reroot)."""
+    import numpy as np
+    import torch
+    from hpmvs_tpu_torch import kernels
+    from hpmvs_tpu_torch.config import Options
+    from hpmvs_tpu_torch.runtime.streaming import StreamingEngine
+    from hpmvs_tpu_torch.testing import make_plane_scene, split_model
+    ps = make_plane_scene(n_cams=7, imgsize=512, n_points=200, seed=0)
+    opt = dataclasses.replace(Options(), **SPATIAL_OPT)
+    m = ps.model
+    lo = np.asarray([(m.meas_img[m.meas_start[i]:m.meas_start[i + 1]]
+                      < 4).sum() for i in range(m.n_points)])
+    xy = m.points_xyz[:, :2] - m.points_xyz[:, :2].mean(0)
+    central = (np.abs(xy) < 0.5 * np.abs(xy).max(0)).all(1)
+    later = central & (np.cumsum(central) % 2 == 0)
+    first, second = split_model(m, 4, ~later & (lo >= 2))
+    mesh = shard_mesh(device, STREAM_SPATIAL_SHARDS)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    budget = budget_left(STREAM_SPATIAL_BUDGET_S)
+    check(budget > 30.0, f"plane_stream_spatial: only {budget:.0f} s left")
+    t0 = time.time()
+    st = StreamingEngine(opt, mesh=mesh, spatial=True, image_subsets=True)
+    n1 = st.add_chunk(first, images=ps.images[:4])
+    eng = st.engine
+    first_prio = min(eng.queue)
+    st.run_to((first_prio // 10 + 1) * 10 - 1)
+    eng._flush_depths()
+    old_depth = eng.pack.depth.clone()
+    alive_mid = eng.n_alive()
+    t = time.time()
+    n2 = st.add_chunk(second, images=ps.images[4:])
+    torch.cuda.synchronize()
+    extend_s = time.time() - t
+    prefix_equal = torch.equal(eng.pack.depth[:len(old_depth)], old_depth)
+    del old_depth
+    for prio in range(opt.max_prio):
+        eng.process_priority_step(prio)
+        if not eng.have_work() or time.time() - t0 > budget:
+            break
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, twins = launch_counts()
+    c = eng.alive_arrays()[0]
+    frac = float((np.abs(c[:, 2] - ps.plane_z) < 0.02).mean())
+    finished = not eng.queue or min(eng.queue) >= opt.max_prio
+    emit("plane_stream_spatial", shards=mesh.size,
+         chunk_cameras=[4, 3], chunk_points=[first.n_points,
+                                             second.n_points],
+         seeds=[n1, n2], stream_seeds=int(eng.stats["stream_seeds"]),
+         reroots=int(eng.stats["reroots"]), alive_mid=alive_mid,
+         prefix_equal=prefix_equal, extend_s=extend_s, wall_s=wall,
+         budget_s=budget, finished=finished, alive=eng.n_alive(),
+         one_shot_spatial_alive=spatial_alive, frac_within_002=frac,
+         hist=[int(x) for x in eng.tree.histogram()],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, twin_calls=twins, **spatial_stats(eng))
+    check_path("plane_stream_spatial", "default", launches, twins)
+    check(prefix_equal, "plane_stream_spatial: the old z-buffer prefix "
+                        "changed")
+    check(eng.stats["stream_seeds"] > 0,
+          "plane_stream_spatial: no stream seeds")
+    check(finished, "plane_stream_spatial: the run did not finish")
+    check(eng.stats["slab_miss"] == 0, "plane_stream_spatial: slab_miss")
+    check(frac >= 0.95, f"plane_stream_spatial: {frac} within 0.02")
+    check(abs(eng.n_alive() - spatial_alive) <= 0.1 * spatial_alive,
+          f"plane_stream_spatial: {eng.n_alive()} alive vs the one-shot "
+          f"spatial plane's {spatial_alive}")
+    return launches
+
+
 def ring_profile_phase(device):
     """The ring plane once unprofiled, then once under torch.profiler with
     device activity only: patches/s, device busy time, idle share of the
@@ -1060,22 +1560,39 @@ def main():
     sc = render_facade()
     eng = facade_phase(device, sc, "facade", "default",
                        FACADE_MAX_TREE_LEVEL, FACADE_BUDGET_S, keep=True)
-    facade_ba_dense_phase(device, eng)
+    solved = facade_ba_dense_phase(device, eng)
     del eng
+    facade_ba_sharded_phase(device, solved)
+    del solved
     facade_phase(device, sc, "facade_exactref_fd", "exactref_fd", 9,
                  FACADE_EXACTREF_FD_BUDGET_S)
     facade_stream_phase(device, sc)
     del sc
     ring_plane_phase(device)
+    # the single-process multi-device paths, several shards on the card
+    mesh_launches = {"plane_mesh": plane_mesh_phase(device)}
+    mesh_launches["plane_spatial"], spatial_alive = plane_spatial_phase(
+        device)
+    mesh_launches["ring_spatial_subsets"] = ring_spatial_subsets_phase(
+        device)
+    mesh_launches["plane_stream_spatial"] = plane_stream_spatial_phase(
+        device, spatial_alive)
     emit("smoke", elapsed_s=time.time() - T0, time_limit_s=TIME_LIMIT_S)
-    # each kernel's launches on the first plane path that runs it
+    # each kernel's launches on the first plane path that runs it, and
+    # beside them its launches on each multi-device path
     runs = {}
     for path, ks in PATH_KERNELS.items():
         for k in ks:
             runs.setdefault(k, path)
-    print(json.dumps({"kernels": [
-        r.record(path_launches[runs[r.name]][r.name])
-        for r in res if r.name in kernel_check.KERNELS]}), flush=True)
+    recs = []
+    for r in res:
+        if r.name not in kernel_check.KERNELS:
+            continue
+        rec = r.record(path_launches[runs[r.name]][r.name])
+        rec["launches_by_phase"] = {ph: int(ln[r.name])
+                                    for ph, ln in mesh_launches.items()}
+        recs.append(rec)
+    print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,11 +5,14 @@ for compatibility; batched wavefronts partition internally), --maxtreelevel,
 --patch_level_final_min, --patch_level_init_max, --more_output,
 --light_output, --only_sphere; plus --ba, --ba_dense, --ba_dense_every
 (bundle adjustment), --checkpoint_every/--resume, --profile (a
-torch.profiler trace), --start_level, --max_views, --covis_min_points and
---device.
+torch.profiler trace), --start_level, --max_views, --covis_min_points,
+--spatial, --image_subsets and --device.
 
-The JAX package's --spatial and --image_subsets are accepted and refused:
-they are not ported yet. Its --platform is refused in favour of --device.
+With more than one visible GPU the run shards over all of them
+(pipeline.run's mesh="auto"); --spatial then partitions the octree into
+Morton blocks over that mesh, and fails as the JAX CLI does on one device.
+A multi-process launch waits for the multi-process port. The JAX package's
+--platform is refused in favour of --device.
 
 Usage: python -m hpmvs_tpu_torch.cli --nvm=scene.nvm --outdir=/tmp/out
 """
@@ -25,9 +28,6 @@ import sys
 
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.runtime import pipeline
-
-NOT_PORTED = ("spatial", "image_subsets")
-
 
 def _profile(folder: str):
     """torch.profiler over the main loop (CPU, and CUDA activity on a GPU),
@@ -101,9 +101,16 @@ def main(argv=None) -> int:
                          "GPU is visible; --device cpu runs on the CPU)")
     ap.add_argument("--platform", default=None,
                     help="(JAX package only) refused: use --device")
-    for flag in NOT_PORTED:
-        ap.add_argument(f"--{flag}", nargs="?", const=True, default=None,
-                        help="not yet ported")
+    ap.add_argument("--spatial", action="store_true",
+                    help="shard the octree into Morton blocks across the "
+                         "device mesh with halo border migration (the "
+                         "getSubTrees + border-queue analog); requires >1 "
+                         "device")
+    ap.add_argument("--image_subsets", action="store_true",
+                    help="with --spatial: shard the packed image pyramids "
+                         "by block so each device holds only the cameras "
+                         "whose frusta see its blocks (the per-subtree "
+                         "working set)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
@@ -112,9 +119,6 @@ def main(argv=None) -> int:
     if args.platform is not None:
         ap.error("--platform selects a JAX platform; hpmvs_tpu_torch takes "
                  "--device (cuda or cpu)")
-    used = [f"--{f}" for f in NOT_PORTED if getattr(args, f) is not None]
-    if used:
-        ap.error(f"{', '.join(used)}: not yet ported to hpmvs_tpu_torch")
     if not os.path.isfile(args.nvm):
         ap.error(f"input file <{args.nvm}> not readable")
 
@@ -151,6 +155,8 @@ def main(argv=None) -> int:
                                        resume=args.resume,
                                        ba_dense=args.ba_dense,
                                        ba_dense_every=args.ba_dense_every,
+                                       spatial=args.spatial,
+                                       image_subsets=args.image_subsets,
                                        device=args.device)
     logging.info("final patches: %d", engine.n_alive())
     return 0

@@ -129,8 +129,12 @@ class Options:
                                # waves; 1 = one wave per dispatch. Waves
                                # larger than BATCH take the chunked path
     DTYPE: str = "float32"
-    BLOCK_OVERSUB: int = 8     # JAX package spatial mode (not ported)
-    REBALANCE_BELOW: float = 0.75  # JAX package image subsets (not ported)
+    BLOCK_OVERSUB: int = 8     # spatial mode: Morton blocks per shard,
+                               # re-binned onto shards every dispatch round
+                               # (runtime/spatial.py)
+    REBALANCE_BELOW: float = 0.75  # image subsets: re-bin blocks (and
+                                   # rebuild the shard slabs) only below
+                                   # this balance
 
     @property
     def n_levels(self) -> int:

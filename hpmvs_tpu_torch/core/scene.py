@@ -75,11 +75,18 @@ def extract_covisibility(model: nvm_io.NvmModel, opt: Options,
 
 def build_scene(model: nvm_io.NvmModel, opt: Options,
                 images: Optional[list] = None,
-                visdata_path: Optional[str] = None, device="cuda") -> Scene:
+                visdata_path: Optional[str] = None, device="cuda",
+                host_pack: bool = False) -> Scene:
     """Load images, build cameras and the device scene context
     (Scene::addCameras, Scene.cpp:42-88) on `device` (the GPU unless
     device="cpu"). images: optional in-memory (H, W, 3) uint8 images used
-    instead of the NVM's files."""
+    instead of the NVM's files.
+
+    host_pack: keep the packed pyramid's texture (imgs.tex) on the host --
+    for per-block image subsets, where the replicated pack may exceed one
+    device's memory and only the per-shard slabs ever go to the devices
+    (parallel/subsets.py). The small row and dim tables still go to
+    `device`."""
     device = resolve_device(device)
     if images is None:
         imgs = pyr.load_scene_images(model.cameras, opt.n_levels)
@@ -97,7 +104,12 @@ def build_scene(model: nvm_io.NvmModel, opt: Options,
 
     ctx = popt.SceneCtx(
         cams=cams,
-        imgs=pyr.ImagePack(*(torch.as_tensor(a, device=device) for a in imgs)),
+        imgs=pyr.ImagePack(
+            tex=torch.as_tensor(imgs.tex,
+                                device="cpu" if host_pack else device),
+            row0=torch.as_tensor(imgs.row0, device=device),
+            width=torch.as_tensor(imgs.width, device=device),
+            height=torch.as_tensor(imgs.height, device=device)),
         covis=torch.as_tensor(covis, device=device),
         ncovis=torch.as_tensor(ncovis, device=device))
     return Scene(ctx=ctx, covis_np=covis, ncovis_np=ncovis,

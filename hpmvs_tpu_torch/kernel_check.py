@@ -310,3 +310,43 @@ def _check_debug_j(st, args):
         f"max |J| {float(pJ.abs().max()):.3g}; launch {launch}",
         bytes=_gn_bytes(st, args, kx, kf, kJ, krho),
         flops=B * flops_per_pass(st.K, True), launch=launch)
+
+
+def check_fetch_slab(cams, slab, full, ci, center, scale, maxlevel: int,
+                     W: int, reps: int = 10) -> dict:
+    """The fetch kernel on a per-shard image slab (parallel/subsets.py: a
+    packed pyramid whose row table is block-local and whose absent cameras
+    have width and height 0), at the windows the main path cuts there
+    (windows.window_cut on the slab, its row clamp the slab's own row
+    count). ci (N, K) camera ids, -1 for none; center (N, K, 3); scale
+    (N, K). `full` is the replicated pack on the same device.
+
+    Returns {"equal_twin": kernel == twin (torch.equal), "equal_full": the
+    slab's windows equal the full pack's wherever the plane holds a whole
+    window (a plane narrower than W reads past its rows into the next
+    plane, which the two packs order differently), "n", "live", "compared",
+    "max_abs_err"}, with reps > 0 also "device_ms", "call_ms" and
+    "plain_ms" (timing.py; the card only)."""
+    present = (ci >= 0) & (slab.width[ci.clamp(min=0).long(), 0] > 0)
+    cc = torch.where(present, ci, torch.zeros_like(ci)).long()
+    level, ox, oy, rows, cols = win_ops.window_cut(
+        cams, slab, cc, center, scale, maxlevel, W)
+    mask = present.reshape(-1)
+    args = dict(tex=slab.tex, rows=rows, ox=cols, W=W, mask=mask)
+    k = fetch.fetch_windows(**args)
+    p = fetch.fetch_windows_twin(**args)
+    lvl = level.long()
+    whole = (present & (full.width[cc, lvl] >= W)
+             & (full.height[cc, lvl] >= W)).reshape(-1)
+    _, _, _, rows_f, cols_f = win_ops.window_cut(cams, full, cc, center,
+                                                 scale, maxlevel, W)
+    f = fetch.fetch_windows_twin(full.tex, rows_f, cols_f, W, mask=mask)
+    out = {"equal_twin": torch.equal(k, p),
+           "equal_full": torch.equal(k[whole], f[whole]),
+           "n": int(mask.numel()), "live": int(mask.sum()),
+           "compared": int(whole.sum()), "max_abs_err": _err(k, p)}
+    if reps:
+        dev, call = both_ms(lambda: fetch.fetch_windows(**args), reps)
+        out.update(device_ms=dev, call_ms=call, plain_ms=call_ms(
+            lambda: fetch.fetch_windows_twin(**args), reps))
+    return out

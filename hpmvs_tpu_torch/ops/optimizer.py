@@ -883,7 +883,8 @@ def optimize_batch(ctx: SceneCtx, opt: Options, center, normal, scale, views):
 
 def optimize_and_gate(ctx: SceneCtx, pack, opt: Options, n_images: int,
                       center, normal, scale, views, parent_c, widths,
-                      pend=None, with_gates: bool = True, pack_layout=None):
+                      pend=None, with_gates: bool = True, pack_layout=None,
+                      gate_imgs=None):
     """Extend-candidate compute: optimize + every acceptance gate of
     CellProcessor::extend (:130-142) -- scale window, drift, depthTests,
     viewBlockTest, pixelFreeTests.
@@ -897,6 +898,13 @@ def optimize_and_gate(ctx: SceneCtx, pack, opt: Options, n_images: int,
     PatchOptimizer.cpp:78, and only extend applies these acceptance gates,
     CellProcessor.cpp:130-142). with_gates=False: the caller promises every
     lane is bare, so the gates are skipped.
+
+    gate_imgs: the image-dim tables of the geometric gates, ctx.imgs by
+    default. Per-block image subsets (parallel/subsets.py) pass a shard's
+    slab as ctx.imgs (its textures, block-local row tables, zero dims for
+    absent cameras) and the GLOBAL dims here: visibility tests span all
+    images (Scene.cpp:610-644) while textures only need the block's
+    cameras.
 
     Returns (center', normal', scale', views', ok, color)."""
     from hpmvs_tpu_torch.core import depth as depth_mod
@@ -927,7 +935,7 @@ def optimize_and_gate(ctx: SceneCtx, pack, opt: Options, n_images: int,
             # its 2x2 pools: the 3x3-neighbourhood tests gather 2 pooled
             # values per (lane, image) instead of 9 (depth.pool_full_depth)
             pool3 = depth_mod.pool_full_depth(full0)
-    imgs = ctx.imgs
+    imgs = ctx.imgs if gate_imgs is None else gate_imgs
     dt = depth_mod.depth_tests(pack, ctx.cams, imgs, opt, oc, on, os_, ov, m,
                                full0=full0, pool3=pool3)
     vb = depth_mod.view_block_test(pack, ctx.cams, imgs, opt, oc, on, os_, m,

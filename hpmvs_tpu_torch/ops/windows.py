@@ -72,6 +72,8 @@ def window_cut(cams, imgs, ci, center, scale, maxlevel: int, W: int):
     oy = torch.minimum(torch.clamp(
         cam_ops.f2i(torch.round(uvw[..., 1])) - W // 2, min=0),
         torch.maximum(h - W, zero))
+    # the clamp's bound is this pack's own row count: a per-shard image
+    # slab (parallel/subsets.py) is shorter than the replicated pack
     tex = imgs.tex
     rows = torch.clamp(imgs.row0[ci, lvl] + oy, 0, tex.shape[0] - W)
     cols = torch.clamp(ox, 0, tex.shape[1] - W)

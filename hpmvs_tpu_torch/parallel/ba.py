@@ -1,5 +1,4 @@
-"""Sparse and dense bundle adjustment via Schur-complement reduction, on one
-device.
+"""Sparse and dense bundle adjustment via Schur-complement reduction.
 
 New capability beyond the reference (BASELINE.json north star: "sparse
 bundle-adjustment refinement of cameras+patches via Schur-complement
@@ -14,22 +13,29 @@ reduction"); hpmvs itself has no BA. Standard structure:
     conjugate gradients whose matvec is assembled per measurement, never
     materialising S.
 
-The single-device part of hpmvs_tpu/parallel/ba.py. The JAX package runs it
-as XLA ops (no Pallas kernel): the port writes it as plain torch on the
-device. The Jacobians come from torch.func.jacfwd of the per-measurement
-residual (9 parameters -> 2 residuals, camera and point in one pass) under
+hpmvs_tpu/parallel/ba.py on torch devices. The JAX package runs it as XLA
+ops (no Pallas kernel): the port writes it as plain torch on the device.
+The Jacobians come from torch.func.jacfwd of the per-measurement residual
+(9 parameters -> 2 residuals, camera and point in one pass) under
 torch.func.vmap, as the JAX package uses jax.jacfwd, in chunks of
 JAC_CHUNK measurements. Every segment sum over cameras or points is an
 index_add_ (atomic adds on CUDA: the sums are not reproducible bit for bit
 from run to run); a camera's adds spread over CAM_SPREAD rows first, since
-one camera holds ~10^5 measurements of a dense cloud. ba_solve enqueues its whole
-Gauss-Newton/CG loop without one host synchronisation: the damping, the CG
-step sizes and the Levenberg accept stay 0-d device tensors, and the 3x3
-point blocks invert with linalg.inv_ex (linalg.inv checks for errors, a
+one camera holds ~10^5 measurements of a dense cloud. ba_solve enqueues its
+whole Gauss-Newton/CG loop without one host synchronisation: the damping,
+the CG step sizes and the Levenberg accept stay 0-d device tensors, and the
+3x3 point blocks invert with linalg.inv_ex (linalg.inv checks for errors, a
 host sync on CUDA).
 
-Not ported (multi-device): ba_solve_sharded, shard_problem, and the mesh
-and owned-engine branches of apply_dense_ba and periodic_dense_ba.
+Over a mesh (parallel/mesh.py): shard_problem orders the measurements by
+point and pads them so that no point straddles two shards;
+ba_solve_sharded keeps one replica of the solver state per shard, sums
+every per-camera and per-point accumulation over the shards' partial sums
+(mesh.psum) and runs the CG with a summed matvec, as the JAX package's
+shard_map does. ba_solve is the same solve over a one-shard mesh, so one
+body serves both. apply_dense_ba takes the mesh branch for an engine with
+a mesh. The owned multi-process branches wait for the multi-process port and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from hpmvs_tpu_torch import resolve_device
+from hpmvs_tpu_torch.parallel import mesh as pmesh
 from hpmvs_tpu_torch.testing import _quatR, _rot_to_quat
 
 
@@ -209,120 +216,230 @@ def _jacobians(cam, pts, cc, pp, K_m, R0_m, t0_m, uv):
             torch.cat([q[1] for q in parts]))
 
 
-def _rms(r, w):
-    return torch.sqrt(torch.sum(w * torch.sum(r * r, -1))
-                      / torch.clamp(torch.sum(w), min=1.0))
-
-
 def ba_solve(prob: BAProblem, n_cams: int, n_pts: int, iters: int = 5,
              cg_iters: int = 30, damping: float = 1e-3, fix_count: int = 1,
              device="cuda"):
     """Gauss-Newton BA with point elimination on `device` (the GPU unless
-    device="cpu"; the problem moves there). The whole solve is enqueued
-    without a host synchronisation.
+    device="cpu"; the problem moves there): the solve of ba_solve_sharded
+    over a one-shard mesh, whose sums are the lone shard's own tensors. The
+    whole solve is enqueued without a host synchronisation.
 
     Returns device tensors (cam_params (C,6), points (Pn,3),
     rms_history (iters+1,))."""
     dev = resolve_device(device)
-    prob = prob.to(dev)
-    cc = prob.m_cam.long()
-    pp = prob.m_pt.long()
-    K_m = prob.cam_K.index_select(0, cc)
-    R0_m = prob.cam_R0.index_select(0, cc)
-    t0_m = prob.cam_t0.index_select(0, cc)
-    uv, wm = prob.m_uv, prob.m_w
-    w2 = wm[:, None]
-    w3 = wm[:, None, None]
-    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
+    return _solve(pmesh.make_mesh([dev]), prob.to(dev), n_cams, n_pts,
+                  iters, cg_iters, damping, fix_count, final_rms=True)
 
+
+def ba_solve_sharded(mesh, prob: BAProblem, n_cams: int, n_pts: int,
+                     iters: int = 5, cg_iters: int = 30,
+                     damping: float = 1e-3, fix_count: int = 1):
+    """Distributed BA: measurements sharded by point over the mesh (shard i
+    holds rows [i*M/n, (i+1)*M/n) of the table); every per-camera and
+    per-point accumulation is a sum of per-shard partial sums and every CG
+    matvec a summed one. Each shard keeps its own replica of the cameras,
+    points, damping and CG vectors, computed alike from the sums.
+
+    The measurement table must be padded so that M divides the mesh size
+    and no point's measurements straddle a shard boundary (pad rows with
+    m_w = 0): use shard_problem(). Returns shard 0's replicas (cam_params
+    (C,6), points (Pn,3), rms_history (iters,): the RMS before each step,
+    without ba_solve's final entry, as the JAX package's sharded solve) on
+    its device."""
+    return _solve(mesh, prob, n_cams, n_pts, iters, cg_iters, damping,
+                  fix_count, final_rms=False)
+
+
+def _solve(mesh, prob: BAProblem, n_cams: int, n_pts: int, iters: int,
+           cg_iters: int, damping: float, fix_count: int, final_rms: bool):
+    """The Gauss-Newton / Schur / Jacobi-CG solve over per-shard lists
+    (ba_solve_sharded's contract); final_rms appends the RMS after the last
+    step to the history (ba_solve's)."""
+    n = mesh.size
+    M = int(prob.m_cam.shape[0])
+    if M % n:
+        raise ValueError(f"{M} measurements do not split over {n} shards: "
+                         "use shard_problem")
+    per = M // n
+    tabs = pmesh.replicate_tables(mesh, (prob.cam_K, prob.cam_R0,
+                                         prob.cam_t0, prob.pts0))
+    sh = []
+    for i, dev in enumerate(mesh.devices):
+        rows = slice(i * per, (i + 1) * per)
+        K, R0, t0, _ = tabs[i]
+        cc = prob.m_cam[rows].to(dev).long()
+        pp = prob.m_pt[rows].to(dev).long()
+        wm = prob.m_w[rows].to(dev)
+        spread = torch.arange(per, device=dev) % CAM_SPREAD
+        sh.append(dict(cc=cc, pp=pp, wm=wm, w2=wm[:, None],
+                       w3=wm[:, None, None], uv=prob.m_uv[rows].to(dev),
+                       K_m=K.index_select(0, cc), R0_m=R0.index_select(0, cc),
+                       t0_m=t0.index_select(0, cc),
+                       cc_spread=cc * CAM_SPREAD + spread))
+
+    def camsum(x, vals):
+        return _segsum(vals, x["cc_spread"], n_cams * CAM_SPREAD).view(
+            (n_cams, CAM_SPREAD) + vals.shape[1:]).sum(1)
+
+    psum = pmesh.psum
+    devs = mesh.devices
+    eye3 = [torch.eye(3, dtype=torch.float32, device=d) for d in devs]
     # gauge fix: freeze the first fix_count cameras. ONE camera pins 6 DoF
     # but leaves the global-scale gauge free (reprojection-only BA); TWO
     # anchors pin the full 7-DoF similarity gauge.
-    mask_c = torch.ones((n_cams, 1), dtype=torch.float32, device=dev)
-    if fix_count > 0:
-        mask_c[:fix_count] = 0.0
+    mask_c = []
+    for d in devs:
+        m = torch.ones((n_cams, 1), dtype=torch.float32, device=d)
+        if fix_count > 0:
+            m[:fix_count] = 0.0
+        mask_c.append(m)
 
-    spread = torch.arange(len(cc), device=dev) % CAM_SPREAD
-    cc_spread = cc * CAM_SPREAD + spread
+    def prms(rs):
+        """Weighted RMS over all shards' residuals (replicated)."""
+        sq = psum([torch.sum(x["wm"] * torch.sum(r * r, -1))
+                   for x, r in zip(sh, rs)])
+        nw = psum([torch.sum(x["wm"]) for x in sh])
+        return [torch.sqrt(a / torch.clamp(b, min=1.0))
+                for a, b in zip(sq, nw)]
 
-    def camsum(vals):
-        """Segment sum over cameras: (C, ...)."""
-        return _segsum(vals, cc_spread, n_cams * CAM_SPREAD).view(
-            (n_cams, CAM_SPREAD) + vals.shape[1:]).sum(1)
+    def residuals(cam, pts):
+        return [res_fn(c.index_select(0, x["cc"]), p.index_select(0, x["pp"]),
+                       x["K_m"], x["R0_m"], x["t0_m"], x["uv"])
+                for x, c, p in zip(sh, cam, pts)]
 
-    cam = torch.zeros((n_cams, 6), dtype=torch.float32, device=dev)
-    pts = prob.pts0
-    lam = torch.full((), damping, dtype=torch.float32, device=dev)
+    cam = [torch.zeros((n_cams, 6), dtype=torch.float32, device=d)
+           for d in devs]
+    pts = [t[3] for t in tabs]
+    lam = [torch.full((), damping, dtype=torch.float32, device=d)
+           for d in devs]
     hist = []
     for _ in range(iters):
-        (Jc, Jp), r = _jacobians(cam, pts, cc, pp, K_m, R0_m, t0_m, uv)
-        # block accumulations (segment sums over cameras / points)
-        Hcc = camsum(w3 * _gram(Jc, Jc))
-        bc = camsum(w2 * _mtv(Jc, r))
-        Hpp = _segsum(w3 * _gram(Jp, Jp), pp, n_pts)
-        bp = _segsum(w2 * _mtv(Jp, r), pp, n_pts)
-        Hpp_inv, _ = torch.linalg.inv_ex(Hpp + lam * eye3)     # (P,3,3)
-        # per-measurement H_pc block, weighted: (M, 3, 6)
-        Wpc = w3 * _gram(Jp, Jc)
+        jr = [_jacobians(c, p, x["cc"], x["pp"], x["K_m"], x["R0_m"],
+                         x["t0_m"], x["uv"])
+              for x, c, p in zip(sh, cam, pts)]
+        Jc = [j[0][0] for j in jr]
+        Jp = [j[0][1] for j in jr]
+        r = [j[1] for j in jr]
+        Hcc = psum([camsum(x, x["w3"] * _gram(a, a))
+                    for x, a in zip(sh, Jc)])
+        bc = psum([camsum(x, x["w2"] * _mtv(a, b))
+                   for x, a, b in zip(sh, Jc, r)])
+        # point blocks live entirely on one shard (sharded by point); the
+        # sums gather the full point-block table on every shard
+        Hpp = psum([_segsum(x["w3"] * _gram(a, a), x["pp"], n_pts)
+                    for x, a in zip(sh, Jp)])
+        bp = psum([_segsum(x["w2"] * _mtv(a, b), x["pp"], n_pts)
+                   for x, a, b in zip(sh, Jp, r)])
+        Hpp_inv = [torch.linalg.inv_ex(h + lm * e)[0]
+                   for h, lm, e in zip(Hpp, lam, eye3)]
+        Wpc = [x["w3"] * _gram(a, b) for x, a, b in zip(sh, Jp, Jc)]
 
         def pc(xc):
-            """H_pc xc accumulated per point: (P, 3)."""
-            return _segsum(_mv(Wpc, xc.index_select(0, cc)), pp, n_pts)
+            """H_pc xc accumulated per point, summed over the shards."""
+            return psum([_segsum(_mv(w, v.index_select(0, x["cc"])),
+                                 x["pp"], n_pts)
+                         for x, w, v in zip(sh, Wpc, xc)])
 
         def cp(yp):
-            """H_cp yp accumulated per camera: (C, 6)."""
-            return camsum(_mtv(Wpc, yp.index_select(0, pp)))
+            """H_cp yp accumulated per camera, summed over the shards."""
+            return psum([camsum(x, _mtv(w, v.index_select(0, x["pp"])))
+                         for x, w, v in zip(sh, Wpc, yp)])
 
         # Schur RHS: b_s = bc - Hcp Hpp^-1 bp
-        y = _mv(Hpp_inv, bp)
-        b_s = bc - cp(y)
+        y = [_mv(h, b) for h, b in zip(Hpp_inv, bp)]
+        b_s = [a - b for a, b in zip(bc, cp(y))]
 
         def s_matvec(xc):
-            """S @ xc without materialising S."""
-            xc = xc.reshape(n_cams, 6) * mask_c
-            t1 = _mv(Hcc, xc) + lam * xc
-            z = _mv(Hpp_inv, pc(xc))
-            return ((t1 - cp(z)) * mask_c).reshape(-1)
+            """S @ xc without materialising S, summed over the shards."""
+            xc = [v.reshape(n_cams, 6) * m for v, m in zip(xc, mask_c)]
+            t1 = [_mv(h, v) + lm * v for h, v, lm in zip(Hcc, xc, lam)]
+            z = [_mv(h, v) for h, v in zip(Hpp_inv, pc(xc))]
+            return [((a - b) * m).reshape(-1)
+                    for a, b, m in zip(t1, cp(z), mask_c)]
 
-        # Jacobi-preconditioned CG on the reduced camera system
-        b_vec = (b_s * mask_c).reshape(-1)
-        diag = torch.clamp(torch.diagonal(Hcc, dim1=1, dim2=2).reshape(-1)
-                           + lam, min=1e-8)
-        x = torch.zeros_like(b_vec)
+        # Jacobi-preconditioned CG on the reduced camera system, one
+        # replica of its vectors per shard
+        b_vec = [(b * m).reshape(-1) for b, m in zip(b_s, mask_c)]
+        diag = [torch.clamp(torch.diagonal(h, dim1=1, dim2=2).reshape(-1)
+                            + lm, min=1e-8) for h, lm in zip(Hcc, lam)]
+        x = [torch.zeros_like(b) for b in b_vec]
         rr = b_vec
-        p = b_vec / diag
-        rz = rr @ p
+        p = [b / d for b, d in zip(b_vec, diag)]
+        rz = [a @ b for a, b in zip(rr, p)]
         for _ in range(cg_iters):
             Ap = s_matvec(p)
-            alpha = rz / torch.clamp(p @ Ap, min=1e-20)
-            x = x + alpha * p
-            rr = rr - alpha * Ap
-            z = rr / diag
-            rz_new = rr @ z
-            beta = rz_new / torch.clamp(rz, min=1e-20)
-            p = z + beta * p
+            alpha = [a / torch.clamp(q @ b, min=1e-20)
+                     for a, q, b in zip(rz, p, Ap)]
+            x = [v + al * q for v, al, q in zip(x, alpha, p)]
+            rr = [v - al * b for v, al, b in zip(rr, alpha, Ap)]
+            z = [v / d for v, d in zip(rr, diag)]
+            rz_new = [a @ b for a, b in zip(rr, z)]
+            beta = [a / torch.clamp(b, min=1e-20)
+                    for a, b in zip(rz_new, rz)]
+            p = [a + be * q for a, be, q in zip(z, beta, p)]
             rz = rz_new
-        dc = -x.reshape(n_cams, 6) * mask_c
-
+        dc = [-v.reshape(n_cams, 6) * m for v, m in zip(x, mask_c)]
         # back-substitute points: dp = -Hpp^-1 (bp + Hpc dc)
-        dp = -_mv(Hpp_inv, bp + pc(dc))
-        new_cam = cam + dc
-        new_pts = pts + dp
+        dp = [-_mv(h, b + z) for h, b, z in zip(Hpp_inv, bp, pc(dc))]
+        new_cam = [a + b for a, b in zip(cam, dc)]
+        new_pts = [a + b for a, b in zip(pts, dp)]
         # Levenberg adaptation: accept + relax on improvement, reject +
         # stiffen otherwise
-        r_new = res_fn(new_cam.index_select(0, cc),
-                       new_pts.index_select(0, pp), K_m, R0_m, t0_m, uv)
-        rms0 = _rms(r, wm)
-        better = _rms(r_new, wm) < rms0
-        cam = torch.where(better, new_cam, cam)
-        pts = torch.where(better, new_pts, pts)
-        lam = torch.where(better, torch.clamp(lam / 3.0, min=1e-6),
-                          lam * 10.0)
-        hist.append(rms0)
-    r_fin = res_fn(cam.index_select(0, cc), pts.index_select(0, pp),
-                   K_m, R0_m, t0_m, uv)
-    hist.append(_rms(r_fin, wm))
-    return cam, pts, torch.stack(hist)
+        rms0 = prms(r)
+        better = [a < b for a, b in
+                  zip(prms(residuals(new_cam, new_pts)), rms0)]
+        cam = [torch.where(bt, a, b) for bt, a, b in zip(better, new_cam, cam)]
+        pts = [torch.where(bt, a, b) for bt, a, b in zip(better, new_pts, pts)]
+        lam = [torch.where(bt, torch.clamp(lm / 3.0, min=1e-6), lm * 10.0)
+               for bt, lm in zip(better, lam)]
+        hist.append(rms0[0])
+    if final_rms:
+        hist.append(prms(residuals(cam, pts))[0])
+    return cam[0], pts[0], torch.stack(hist)
+
+
+def shard_problem(prob: BAProblem, n_shards: int) -> BAProblem:
+    """Pad + reorder the measurement table so points don't straddle shards
+    (on the problem's device)."""
+    dev = prob.m_cam.device
+    m_pt = prob.m_pt.cpu().numpy()
+    m_cam = prob.m_cam.cpu().numpy()
+    m_uv = prob.m_uv.cpu().numpy()
+    m_w = prob.m_w.cpu().numpy()
+    order = np.argsort(m_pt, kind="stable")
+    m_pt, m_cam, m_uv, m_w = (m_pt[order], m_cam[order], m_uv[order],
+                              m_w[order])
+    M = len(m_pt)
+    per = -(-M // n_shards)
+    # greedy: walk the points' runs, close a shard when it would overflow
+    # `per`
+    cut = np.flatnonzero(np.diff(m_pt)) + 1
+    run_a = np.concatenate([[0], cut]).astype(np.int64)
+    run_b = np.concatenate([cut, [M]]).astype(np.int64)
+    rows = [[] for _ in range(n_shards)]
+    shard, filled = 0, 0
+    for i, j in (zip(run_a, run_b) if M else ()):
+        if filled + (j - i) > per and shard + 1 < n_shards:
+            shard += 1
+            filled = 0
+        rows[shard].append(np.arange(i, j))
+        filled += j - i
+    idx = [np.concatenate(r) if r else np.zeros(0, np.int64) for r in rows]
+    width = max(per, max(len(r) for r in idx))
+    out_cam = np.zeros((n_shards, width), np.int32)
+    out_pt = np.zeros((n_shards, width), np.int32)
+    out_uv = np.zeros((n_shards, width, 2), np.float32)
+    out_w = np.zeros((n_shards, width), np.float32)
+    for s, r in enumerate(idx):
+        out_cam[s, :len(r)] = m_cam[r]
+        out_pt[s, :len(r)] = m_pt[r]
+        out_uv[s, :len(r)] = m_uv[r]
+        out_w[s, :len(r)] = m_w[r]
+    return prob._replace(
+        m_cam=torch.as_tensor(out_cam.reshape(-1), device=dev),
+        m_pt=torch.as_tensor(out_pt.reshape(-1), device=dev),
+        m_uv=torch.as_tensor(out_uv.reshape(-1, 2), device=dev),
+        m_w=torch.as_tensor(out_w.reshape(-1), device=dev))
 
 
 def build_dense_problem(model, centers: np.ndarray, views: np.ndarray,
@@ -419,6 +536,10 @@ def periodic_dense_ba(engine, obs: DenseObsStore, iters: int = 6,
     """One ba_dense_every pass: stamp observations for patches created
     since the last pass, then re-solve cameras+patches against ALL stamped
     observations on `device` and fold the result back (apply_dense_ba)."""
+    if hasattr(engine, "n_alive_local"):
+        raise NotImplementedError(
+            "periodic dense BA of the owned multi-process engine waits for "
+            "the multi-process port")
     p = engine.patches
     pids = np.nonzero(p.alive[:p.n])[0]
     if len(pids) < 16:
@@ -478,9 +599,19 @@ def apply_dense_ba(engine, iters: int = 8, cg_iters: int = 40,
     problem: a pre-built BAProblem whose observations were recorded under
     earlier cameras (drift correction); the default builds one from the
     CURRENT state (then the solve is a consistency no-op unless cameras
-    have been perturbed since densification)."""
+    have been perturbed since densification).
+
+    Sharding: with engine.mesh, the measurement table shards by patch over
+    the mesh (shard_problem) and every reduction is a sum over the shards
+    (ba_solve_sharded); `device` is then unused. The owned multi-process
+    engine's branch waits for the multi-process port."""
     from hpmvs_tpu_torch.core import depth as depth_mod
-    dev = resolve_device(device)
+    if hasattr(engine, "n_alive_local"):
+        raise NotImplementedError(
+            "dense BA of the owned multi-process engine waits for the "
+            "multi-process port")
+    mesh = getattr(engine, "mesh", None)
+    dev = engine.device if mesh is not None else resolve_device(device)
     # outstanding speculation captured pre-BA cameras and centers
     engine.drop_speculation()
     p = engine.patches
@@ -490,9 +621,15 @@ def apply_dense_ba(engine, iters: int = 8, cg_iters: int = 40,
     if problem is None:
         problem = build_dense_problem(engine.model, p.center[pids],
                                       p.views[pids], device=dev)
-    cam, pts, hist = ba_solve(problem, len(engine.model.cameras), len(pids),
-                              iters=iters, cg_iters=cg_iters,
-                              fix_count=fix_count, device=dev)
+    n_cams, n_pts = len(engine.model.cameras), len(pids)
+    if mesh is not None:
+        cam, pts, hist = ba_solve_sharded(
+            mesh, shard_problem(problem, mesh.size), n_cams, n_pts,
+            iters=iters, cg_iters=cg_iters, fix_count=fix_count)
+    else:
+        cam, pts, hist = ba_solve(problem, n_cams, n_pts, iters=iters,
+                                  cg_iters=cg_iters, fix_count=fix_count,
+                                  device=dev)
     cam, pts, hist = (cam.cpu().numpy(), pts.cpu().numpy(),
                       hist.cpu().numpy())
 

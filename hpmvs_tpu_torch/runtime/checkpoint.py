@@ -10,8 +10,11 @@ checkpoint (or an imported tree) resumes mid-reconstruction.
 
 The file format is hpmvs_tpu/runtime/checkpoint.py's, key for key and dtype
 for dtype: a checkpoint written by either package loads into the other's
-engine. The per-process shares of the owned multi-host engine
-(`_owned_path`) are not ported.
+engine. Any engine of the port saves and loads: one device, a mesh
+(shard 0's z-buffer replica is saved; a load re-copies the others) or the
+spatial engine (its slabs rebuild at the next dispatch). The per-process
+shares of the owned multi-process engine (`_owned_path`) wait for the
+multi-process port.
 """
 
 from __future__ import annotations

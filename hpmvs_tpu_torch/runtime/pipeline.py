@@ -4,9 +4,11 @@ Behavioral equivalent of src/main.cpp:98-206: load NVM -> build scene ->
 extract covisibility -> seed + optimize -> priority loop over
 (MAX_TREE_LEVEL+1)*10 steps with progressive PLY snapshots every 10 steps
 (one octree level) -> final PLY. The reference's subtree decomposition +
-OpenMP fan-out collapses into the Engine's batched wavefronts on one device.
+OpenMP fan-out collapses into the Engine's batched wavefronts, on one device
+or sharded over a mesh of devices driven by this one process.
 
-The single-device run() of hpmvs_tpu/runtime/pipeline.py.
+The run() of hpmvs_tpu/runtime/pipeline.py; its multi-process launch (the
+owned engine, one process per host) waits for the multi-process port.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import logging
 import os
 import time
 from typing import Optional
+
+import torch
 
 from hpmvs_tpu_torch import resolve_device
 from hpmvs_tpu_torch.config import Options
@@ -30,7 +34,8 @@ def run(model: nvm_io.NvmModel, opt: Options, images=None,
         max_prio: Optional[int] = None,
         bundle_adjust: bool = False, resume: Optional[str] = None,
         ba_dense: bool = False, ba_dense_every: int = 0,
-        device="cuda") -> Engine:
+        device="cuda", mesh="auto", spatial: bool = False,
+        image_subsets: bool = False) -> Engine:
     """Progressive densification main loop (main.cpp:145-202) on `device`:
     the GPU unless device="cpu" (RuntimeError when no GPU is visible).
 
@@ -48,11 +53,36 @@ def run(model: nvm_io.NvmModel, opt: Options, images=None,
     patches-final.ply; the depth buffer replays under the result.
     ba_dense_every: the same every N octree levels inside the loop, against
     the patches' creation-time observations (ba.DenseObsStore).
+    mesh: a parallel.mesh.Mesh to shard the wavefront batches over, None
+    for one device, or "auto" (default): a mesh over every visible GPU when
+    `device` is a GPU and more than one is visible, else none (the
+    OpenMP-over-subtrees analog, main.cpp:127-139). With a mesh the engine
+    runs on its shards and `device` is its first shard.
+    spatial: partition the octree into Morton blocks on the mesh with halo
+    border migration (the getSubTrees + border-queue analog, main.cpp:50-96,
+    CellProcessor.cpp:487-540) instead of flat batch sharding; needs a mesh.
+    image_subsets: with spatial, each shard holds only the image slab of
+    the cameras whose frusta see its blocks (parallel/subsets.py).
 
-    The JAX run's mesh, spatial and image_subsets wait for the multi-device
-    port. Its enable_compile_cache has no counterpart: PyTorch runs eagerly
-    and the CUDA kernels build once into build/ (kernels.py)."""
-    device = resolve_device(device)
+    More than one process (a torch.distributed launch) raises
+    NotImplementedError: the owned multi-process engine is not ported yet.
+    The JAX run's enable_compile_cache has no counterpart: PyTorch runs
+    eagerly and the CUDA kernels build once into build/ (kernels.py)."""
+    if _n_processes() > 1:
+        raise NotImplementedError(
+            "a multi-process launch needs the owned multi-process engine, "
+            "which is not ported yet")
+    if mesh is None or isinstance(mesh, str):
+        device = resolve_device(device)
+    if isinstance(mesh, str) and mesh == "auto":
+        mesh = None
+        if device.type == "cuda" and torch.cuda.device_count() > 1:
+            from hpmvs_tpu_torch.parallel import mesh as pmesh
+            mesh = pmesh.make_mesh()
+            log.info("sharding wavefronts over %d devices %s", mesh.size,
+                     dict(zip(mesh.axis_names, mesh.shape)))
+    if mesh is not None:
+        device = mesh.devices[0]
     os.makedirs(opt.OUTFOLDER, exist_ok=True)
     if bundle_adjust and model.n_points > 0:
         from hpmvs_tpu_torch.parallel import ba
@@ -67,9 +97,19 @@ def run(model: nvm_io.NvmModel, opt: Options, images=None,
                                   pts.cpu().numpy())
     # PMVS-style VISDATA debug dump, like the reference's always-written
     # /tmp/testvis.dat (Scene.cpp:243,279) but into the output folder
-    engine = Engine(model, opt, images=images,
-                    visdata_path=os.path.join(opt.OUTFOLDER, "testvis.dat"),
-                    device=device)
+    cls, kw = Engine, {}
+    if spatial:
+        if mesh is None:
+            raise ValueError("spatial=True requires a device mesh")
+        from hpmvs_tpu_torch.runtime.spatial import SpatialEngine
+        cls, kw = SpatialEngine, dict(image_subsets=image_subsets)
+    if mesh is not None:
+        kw["mesh"] = mesh
+    else:
+        kw["device"] = device
+    engine = cls(model, opt, images=images,
+                 visdata_path=os.path.join(opt.OUTFOLDER, "testvis.dat"),
+                 **kw)
     engine.wave_hook = wave_hook
     if resume:
         from hpmvs_tpu_torch.runtime import checkpoint as ckpt
@@ -166,6 +206,15 @@ def run(model: nvm_io.NvmModel, opt: Options, images=None,
                         binary=True, normal=False, scale=False,
                         visibility=False)
     return engine
+
+
+def _n_processes() -> int:
+    """Processes of this launch: torch.distributed's world size when it is
+    initialised, else the launcher's WORLD_SIZE, else 1."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 def run_nvm_file(path: str, opt: Options, **kw) -> Engine:

@@ -16,9 +16,14 @@ capability beyond the reference, which drops outside-root patches
 (CellProcessor.cpp:147). Each reroot deepens all levels by one, trading
 one step of the finest resolution against the doubled extent.
 
-The single-device StreamingEngine of hpmvs_tpu/runtime/streaming.py. Its
-mesh, spatial and image_subsets modes are not ported: passing them raises
-NotImplementedError.
+The StreamingEngine of hpmvs_tpu/runtime/streaming.py. It composes with
+every single-process engine mode: `mesh` for sharded wavefronts, `spatial`
+for Morton-block ownership + halo migration, `image_subsets` for per-shard
+image slabs. Scene rebuilds on chunk arrival go through
+Engine.refresh_host_caches, which also drops the mesh closures and the
+spatial engine's slabs; a reroot changes the root cube, so the slabs
+rebuild at the next dispatch. The owned multi-process engine waits for the
+multi-process port.
 """
 
 from __future__ import annotations
@@ -60,17 +65,20 @@ def merge_models(base: Optional[nvm_io.NvmModel],
 
 
 class StreamingEngine:
-    """Incremental wrapper around the wavefront Engine on one device (the
-    GPU unless device="cpu")."""
+    """Incremental wrapper around the wavefront Engine, on one device (the
+    GPU unless device="cpu") or over a mesh (parallel.mesh.Mesh: the
+    engine runs on its shards and `device` is unused)."""
 
     def __init__(self, opt: Options, device="cuda", mesh=None,
                  spatial: bool = False, image_subsets: bool = False):
-        if mesh is not None or spatial or image_subsets:
-            raise NotImplementedError(
-                "streaming over a device mesh (mesh, spatial, image_subsets) "
-                "is not yet ported to hpmvs_tpu_torch")
+        if spatial and mesh is None:
+            raise ValueError("spatial streaming requires a device mesh")
         self.opt = opt
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.spatial = spatial
+        self.image_subsets = image_subsets
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.devices[0]
         self.model: Optional[nvm_io.NvmModel] = None
         self.images: Optional[List[np.ndarray]] = None
         self.engine: Optional[Engine] = None
@@ -84,10 +92,21 @@ class StreamingEngine:
         self.model = merge_models(self.model, chunk)
 
         if first:
-            self.engine = Engine(self.model, self.opt, images=self.images,
-                                 device=self.device)
+            self.engine = self._make_engine()
             return self.engine.seed()
         return self._extend(chunk)
+
+    def _make_engine(self) -> Engine:
+        if self.spatial:
+            from hpmvs_tpu_torch.runtime.spatial import SpatialEngine
+            return SpatialEngine(self.model, self.opt, images=self.images,
+                                 mesh=self.mesh,
+                                 image_subsets=self.image_subsets)
+        if self.mesh is not None:
+            return Engine(self.model, self.opt, images=self.images,
+                          mesh=self.mesh)
+        return Engine(self.model, self.opt, images=self.images,
+                      device=self.device)
 
     def _extend(self, chunk: nvm_io.NvmModel) -> int:
         eng = self.engine
@@ -96,6 +115,10 @@ class StreamingEngine:
         eng._flush_depths()  # pending adds must land before the repack
         n_old_cams = eng.scene.n_cameras
         old_pack = eng.pack
+        # under a mesh the other shards' replicas equal shard 0's (the
+        # window just flushed into every one): they are copied anew from the
+        # grown pack at the next dispatch
+        eng._depth_replicas = None
 
         # rebuild the scene over the grown camera set. Images append, and a
         # plane's row offset counts only the rows above it, so every
@@ -105,7 +128,8 @@ class StreamingEngine:
         # card at once.
         eng.scene = None
         eng.scene = scene_mod.build_scene(self.model, opt, images=self.images,
-                                          device=eng.device)
+                                          device=eng.device,
+                                          host_pack=eng._host_images)
         eng.model = self.model
         new_pack = depth_mod.build_depth_pack(
             eng.scene.width_np, eng.scene.height_np, opt.DEPTH_SUBSAMPLE,

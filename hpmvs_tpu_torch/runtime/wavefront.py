@@ -44,6 +44,16 @@ goes deep only while it fits one BATCH chunk. The deferred depth window
 always rides the next dispatch whole. Uploads to the GPU go through pinned
 memory without blocking, so enqueueing a dispatch never waits for the
 device; the host waits only when it copies results back.
+
+Mesh (parallel/mesh.py): Engine(mesh=...) splits every extend chunk over
+the mesh's shards, one optimize_and_gate per shard on its own device with
+its own z-buffer replica (shard 0's is self.pack.depth); the deferred depth
+window applies to every replica once. Without shape buckets each shard
+takes its exact lane count: a BATCH chunk gives each shard at most
+BATCH // n_shards lanes. Deep waves are off under a mesh (as in the JAX
+engine); the lookahead stays on. The coordination hooks (_count_global,
+_agree_pmin, ...) are the identity in this single-process engine: a
+multi-process engine overrides them (not ported yet).
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ from hpmvs_tpu_torch.geom import camera as cam_ops
 from hpmvs_tpu_torch.io import ply as ply_io
 from hpmvs_tpu_torch.ops import deepwave
 from hpmvs_tpu_torch.ops import optimizer as popt
+from hpmvs_tpu_torch.parallel import mesh as pmesh
 
 log = logging.getLogger("hpmvs_tpu_torch")
 
@@ -77,17 +88,37 @@ class Engine:
 
     native_octree: answer the octree's large queries with the native
     library (built at first use; a failed build raises), else with numpy.
-    stats["octree_native"] records which."""
+    stats["octree_native"] records which.
+
+    device: the GPU unless "cpu" is asked for. mesh: a parallel.mesh.Mesh
+    to shard the wavefront batches over; the engine's device is then the
+    mesh's first shard (a different `device` raises). host_images: keep
+    the packed pyramid's texture on the host (per-block image subsets
+    place only their per-shard slabs on the devices)."""
 
     def __init__(self, model, opt: Options, images=None,
-                 visdata_path: Optional[str] = None, device="cuda",
-                 native_octree: bool = True):
+                 visdata_path: Optional[str] = None, device=None,
+                 native_octree: bool = True, mesh=None,
+                 host_images: bool = False):
         self.opt = opt
         self.model = model
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device("cuda" if device is None
+                                         else device)
+        else:
+            self.device = mesh.devices[0]
+            if device is not None and pmesh._resolve(device) != self.device:
+                raise ValueError(f"Engine: device {device} is not the "
+                                 f"mesh's first shard ({self.device})")
+        self._host_images = host_images
+        self._sharded_gate_fn = None
+        self._flush_fn = None
+        self._depth_replicas = None
         self.scene = scene_mod.build_scene(model, opt, images=images,
                                            visdata_path=visdata_path,
-                                           device=self.device)
+                                           device=self.device,
+                                           host_pack=host_images)
         self.pack = depth_mod.build_depth_pack(
             self.scene.width_np, self.scene.height_np, opt.DEPTH_SUBSAMPLE,
             device=self.device)
@@ -114,12 +145,48 @@ class Engine:
             native.lib()
         self.stats["octree_native"] = self._native
 
+    # -- coordination hooks: the identity in this single-process engine;
+    # -- a multi-process engine overrides them --------------------------
+    def _count_global(self, n: int) -> int:
+        """Sum a small host counter across processes (identity here)."""
+        return int(n)
+
+    def _agree_pmin(self, prio: int):
+        """Next queue priority to drain, or None (global min when owned)."""
+        if not self.queue:
+            return None
+        pmin = min(self.queue)
+        return None if pmin > prio else pmin
+
+    def _filter_owned(self, keep: np.ndarray, pts: np.ndarray) -> np.ndarray:
+        """Mask a seed keep-vector down to locally-owned lanes (identity)."""
+        return keep
+
+    def _agree_bbox(self, pts: np.ndarray):
+        """Bounding box of the GLOBAL seed cloud (local = identity)."""
+        return pts.min(0), pts.max(0)
+
+    def _remote_neighbor_counts(self, pts: np.ndarray) -> np.ndarray:
+        """(N,) 0/1: neighbor-probe positions owned by another process
+        (always 0 in single-process engines)."""
+        return np.zeros(len(pts), np.int64)
+
+    def _gather_pend(self, c, s, v, ph):
+        """Merge deferred depth windows across processes (identity): the
+        z-buffer is the one globally-shared mutable state, like the
+        reference's shared depth pyramid across all processors
+        (Scene.h:75-76)."""
+        return c, s, v, ph
+
     def refresh_host_caches(self):
         """Host copies of the camera SoA (the scheduler's hot loop reads
         them without device copies) and the depth pack's per-level layout.
         Re-call after the scene, its cameras or the pack change (streaming,
         dense bundle adjustment). Nothing else in the engine, ops/deepwave.py
-        or ops/optimizer.py caches from `scene` or `pack`."""
+        or ops/optimizer.py caches from `scene` or `pack`, except the mesh
+        closures, which replicate the scene's tables and are dropped here."""
+        self._sharded_gate_fn = None
+        self._flush_fn = None
         cams = self.scene.ctx.cams
         self.cam_center_np = cams.center.cpu().numpy()
         self.cam_xaxis_np = cams.xaxis.cpu().numpy()
@@ -256,24 +323,42 @@ class Engine:
             phs.append(np.full(len(e[1]), ph, np.int32))
         return c, s, v, np.concatenate(phs)
 
+    def _take_pending_host(self):
+        """The deferred window as host arrays (c, s, v, phase), or None when
+        nothing is pending; the window is cleared."""
+        if self._count_global(len(self._pend)) == 0:
+            return None
+        arrs = self._gather_pend(*self._pend_arrays())
+        self._pend = []
+        return arrs
+
     def _take_pending(self):
         """The deferred window as device tensors (c, s, v, phase), or None
         when nothing is pending; the window is cleared."""
-        if not self._pend:
+        arrs = self._take_pending_host()
+        if arrs is None:
             return None
-        arrs = self._pend_arrays()
-        self._pend = []
         return tuple(self._dev(a) for a in arrs)
 
     def _flush_depths(self):
         """Apply the deferred depth window on its own (before a fourth
-        phase would be needed, and for external pack readers)."""
-        pend = self._take_pending()
+        phase would be needed, and for external pack readers); under a
+        mesh to every shard's replica."""
+        pend = self._take_pending_host()
         if pend is None:
             return
         t0 = time.time()
-        depth_mod.apply_depth_updates(self.pack, self.scene.ctx.cams, *pend,
-                                      subsample=self.opt.DEPTH_SUBSAMPLE)
+        if self.mesh is not None:
+            if self._flush_fn is None:
+                self._flush_fn = pmesh.sharded_apply_depth_updates(
+                    self.mesh, self.scene.ctx.cams, self.pack,
+                    self.opt.DEPTH_SUBSAMPLE)
+            self._flush_fn(self._replicas(), *pend)
+        else:
+            depth_mod.apply_depth_updates(
+                self.pack, self.scene.ctx.cams,
+                *(self._dev(a) for a in pend),
+                subsample=self.opt.DEPTH_SUBSAMPLE)
         self._sync()
         self.stats["t_device"] += time.time() - t0
         self.stats["dispatches"] += 1
@@ -282,19 +367,81 @@ class Engine:
     # ------------------------------------------------------------------
     # device dispatch
     # ------------------------------------------------------------------
-    def _dev(self, a):
-        """Host array -> device tensor. To the GPU through pinned memory
-        without blocking: a pageable copy would make the host wait for
-        everything enqueued before it (the caching host allocator keeps the
-        pinned block until its copy has run)."""
+    def _dev(self, a, device=None):
+        """Host array -> tensor on `device` (the engine's by default). To
+        the GPU through pinned memory without blocking: a pageable copy
+        would make the host wait for everything enqueued before it (the
+        caching host allocator keeps the pinned block until its copy has
+        run)."""
+        device = self.device if device is None else device
         t = torch.as_tensor(np.ascontiguousarray(a))
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return t.pin_memory().to(device, non_blocking=True)
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devs = [self.device] if self.mesh is None else self.mesh.distinct
+        for d in devs:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    # -- mesh plumbing -----------------------------------------------------
+    def _replicas(self) -> list:
+        """The per-shard z-buffer replicas; shard 0's is self.pack.depth.
+        When the pack was replaced (checkpoint load, stream extension,
+        dense BA) the other shards' replicas are copied from it anew."""
+        r = self._depth_replicas
+        d = self.pack.depth
+        if r is None or r[0] is not d:
+            r = [d] + [d.to(dev, copy=True) for dev in self.mesh.devices[1:]]
+            self._depth_replicas = r
+        return r
+
+    def _dev_shards(self, arrays) -> list:
+        """Host arrays -> per-shard tuples of device tensors, uploaded once
+        per distinct device (read-only: shards on one device share them)."""
+        per = {d: tuple(self._dev(a, d) for a in arrays)
+               for d in self.mesh.distinct}
+        return [per[d] for d in self.mesh.devices]
+
+    def _mesh_dispatch(self, parts, gates: bool):
+        """Enqueue one sharded optimize+gate dispatch: parts[i] is shard
+        i's 6 host lane arrays, or None. The deferred window rides along
+        to every replica. Returns per-shard device outputs (None where a
+        shard had no lanes)."""
+        pend = self._take_pending_host()
+        if pend is not None:
+            pend = self._dev_shards(pend)
+        lanes = [None if p is None else tuple(
+            self._dev(a, d) for a in (np.asarray(p[0], np.float32),
+                                      np.asarray(p[1], np.float32),
+                                      np.asarray(p[2], np.float32),
+                                      np.asarray(p[3], np.int32),
+                                      np.asarray(p[4], np.float32),
+                                      np.asarray(p[5], np.float32)))
+            for p, d in zip(parts, self.mesh.devices)]
+        return self._sharded_gate_call(lanes, pend, gates)
+
+    def _sharded_gate_call(self, lanes, pend, gates: bool):
+        """Mesh-path optimize+gate over per-shard device lanes (the spatial
+        engine overrides it with the per-block image-subset variant)."""
+        if self._sharded_gate_fn is None:
+            self._sharded_gate_fn, _ = pmesh.sharded_optimize_and_gate(
+                self.mesh, self.scene.ctx, self.opt, self.pack,
+                self.scene.n_cameras, pack_layout=self._pack_layout)
+        return self._sharded_gate_fn(lanes, self._replicas(), pend,
+                                     with_gates=gates)
+
+    @staticmethod
+    def _host_out(out):
+        """A dispatch's device outputs -> its 6 host arrays; a mesh
+        dispatch's per-shard outputs concatenate in shard order."""
+        if isinstance(out, list):
+            parts = [tuple(t.cpu().numpy() for t in o) for o in out
+                     if o is not None]
+            return tuple(np.concatenate([p[j] for p in parts])
+                         for j in range(6))
+        return tuple(t.cpu().numpy() for t in out)
 
     def _extend_compute(self, centers, normals, scales, views, parent_c,
                         widths):
@@ -309,12 +456,27 @@ class Engine:
     def _dispatch_extend(self, centers, normals, scales, views, parent_c,
                          widths):
         """Enqueue the optimize+gate work of one chunk on the device;
-        returns device tensors (oc, on, os, ov, ok, col). Deferred depth
-        updates ride along and the z-buffer is updated in place."""
-        pend = self._take_pending()
+        returns device tensors (oc, on, os, ov, ok, col), under a mesh a
+        list of them per shard (the chunk split into contiguous equal
+        segments). Deferred depth updates ride along and the z-buffer is
+        updated in place."""
         # all-bare batches (branch / seed dispatches) skip the geometric
         # gates, whose per-lane results those lanes discard anyway
         gates = bool((widths > 0).any())
+        if self.mesh is not None:
+            n, ns = len(scales), self.mesh.size
+            per = -(-n // ns)
+            parts = []
+            for i in range(ns):
+                a, b = min(i * per, n), min((i + 1) * per, n)
+                parts.append(None if a == b else tuple(
+                    x[a:b] for x in (centers, normals, scales, views,
+                                     parent_c, widths)))
+            out = self._mesh_dispatch(parts, gates)
+            self.stats["dispatches"] += 1
+            self.stats["disp_extend"] += 1
+            return out
+        pend = self._take_pending()
         d = self._dev
         out = popt.optimize_and_gate(
             self.scene.ctx, self.pack, self.opt, self.scene.n_cameras,
@@ -343,7 +505,7 @@ class Engine:
         opt = self.opt
         c, n, s, v, orig = scene_mod.make_seed_patches(self.model, self.scene,
                                                        opt)
-        if c.shape[0] == 0:
+        if self._count_global(c.shape[0]) == 0:
             self.tree = LinearOctree(np.zeros(3), 2.0, native=self._native)
             return 0
         t0 = time.time()
@@ -354,16 +516,17 @@ class Engine:
         keep = ok & drift
         self.stats["seed_ok"] = int(ok.sum())
         self.stats["seed_drift_pass"] = int((ok & drift).sum())
+        keep = self._filter_owned(keep, out_c)
         log.info("created %d initPatches out of %d points (%.1fs)",
                  int(keep.sum()), self.model.n_points, time.time() - t0)
 
         c, n, s, v, col = (out_c[keep], out_n[keep], out_s[keep], out_v[keep],
                            col[keep])
-        if c.shape[0] == 0:
+        if self._count_global(c.shape[0]) == 0:
             self.tree = LinearOctree(np.zeros(3), 2.0, native=self._native)
             return 0
-        # bounding cube root (Scene.cpp:186-193)
-        mn, mx = c.min(0), c.max(0)
+        # bounding cube root (Scene.cpp:186-193); global across processes
+        mn, mx = self._agree_bbox(c)
         width = max(float(np.max(mx - mn)), 1e-6)
         self.tree = LinearOctree((mn + mx) / 2.0, width,
                                  max_level=min(opt.MAX_TREE_LEVEL + 2, 20),
@@ -403,12 +566,12 @@ class Engine:
         (one OMP-parallel processQueue sweep in the reference,
         main.cpp:150-154)."""
         changed = False
-        while self.queue:
-            pmin = min(self.queue)
-            if pmin > prio:
+        while True:
+            pmin = self._agree_pmin(prio)
+            if pmin is None:
                 break
             live = self._pop_live(pmin)
-            if len(live) == 0:
+            if self._count_global(len(live)) == 0:
                 continue
             changed = True
             t0 = time.time()
@@ -450,8 +613,11 @@ class Engine:
         expanded = self.patches.expanded[first_pid]
         flat = self.patches.flatness[first_pid]
 
+        # extend and branch dispatch device work: a multi-process engine
+        # agrees their participation (empty local batches still join);
+        # filter, regularize and remove are host-only
         ext = cids[~expanded]
-        if len(ext):
+        if self._count_global(len(ext)):
             self._extend_cells(ext)
         reg = cids[expanded & (flat < 0)]
         if len(reg):
@@ -460,7 +626,7 @@ class Engine:
         if len(rem):
             self._remove_cells(rem)
         bra = cids[expanded & (flat >= 0) & (flat <= opt.FLATNESS_REMOVE)]
-        if len(bra):
+        if self._count_global(len(bra)):
             self._branch_cells(bra)
 
     # -- filter (CellProcessor::filter, :43-82) -------------------------
@@ -539,11 +705,11 @@ class Engine:
         _, widths = self.tree.cell_center_width(cids)
         levels = self.tree.node_level(cids)
 
-        (c_in, n_in, s_in, v_in, p_in, w_in, _, lv_lanes,
+        (c_in, n_in, s_in, v_in, p_in, w_in, src_sel, lv_lanes,
          pr_lanes) = self._extend_candidates(centers, normals, views,
                                              prio_red, widths, levels)
         self.stats["extend_candidates"] += len(c_in)
-        if len(c_in) == 0:
+        if self._count_global(len(c_in)) == 0:
             self._finish_extend(cids, pids, levels, prio_red)
             return
         if self._lookahead_ok():
@@ -554,7 +720,8 @@ class Engine:
             out = self._fetch_spec_chunks(self._spec_dispatch(
                 c_in, n_in, s_in, v_in, p_in, w_in))
             self._speculate_next(out, lv_lanes, pr_lanes)
-            n_ins = self._insert_new_patches(*out, lv_lanes, pr_lanes)
+            n_ins = self._route_extend(*out, lv_lanes, pr_lanes,
+                                       cids[src_sel])
             self._commit_spec()
             self.stats["extended"] += n_ins
             self._finish_extend(cids, pids, levels, prio_red)
@@ -565,8 +732,9 @@ class Engine:
             # routing chunk i overlaps chunks i+1..'s device compute; the
             # insert-time occupancy re-check keeps first-wins order
             # identical to whole-batch routing
-            n_ins += self._insert_new_patches(oc, on, os_, ov, okk, col,
-                                              lv_lanes[a:b], pr_lanes[a:b])
+            n_ins += self._route_extend(oc, on, os_, ov, okk, col,
+                                        lv_lanes[a:b], pr_lanes[a:b],
+                                        cids[src_sel[a:b]])
         self.stats["extended"] += n_ins
         self._finish_extend(cids, pids, levels, prio_red)
 
@@ -612,7 +780,7 @@ class Engine:
         for dev, a, b in self._spec_dispatch(centers, normals, scales, views,
                                              parent_c, widths):
             t1 = time.time()
-            got = tuple(t.cpu().numpy() for t in dev)
+            got = self._host_out(dev)
             self.stats["t_device"] += time.time() - t1
             yield a, b, got
 
@@ -634,8 +802,10 @@ class Engine:
 
     def _deep_ok(self, n: int) -> bool:
         """A wave goes deep while it fits one BATCH chunk; larger waves take
-        the chunked lookahead path."""
-        return self.opt.WAVE_DEPTH > 1 and n <= max(self.opt.BATCH, 16)
+        the chunked lookahead path. Never under a mesh (as in the JAX
+        engine: its device router runs on one device)."""
+        return (self.opt.WAVE_DEPTH > 1 and self.mesh is None
+                and n <= max(self.opt.BATCH, 16))
 
     def _deep_dispatch(self, c_in, n_in, s_in, v_in, p_in, w_in):
         """Enqueue ONE WAVE_DEPTH-generation dispatch (deepwave.
@@ -758,14 +928,14 @@ class Engine:
             # last generation (or fallback): classic next-wave speculation
             # BEFORE routing mutates the tree (may itself go deep)
             self._speculate_next((oc, on, os_, ov, okf, col), lv_l, pr_l)
-            n_ins = self._insert_new_patches(oc, on, os_, ov, okf, col, lv_l,
-                                             pr_l)
+            n_ins = self._route_extend(oc, on, os_, ov, okf, col, lv_l,
+                                       pr_l, cids[spec["src_sel"]])
             self._commit_spec()
             self.stats["extended"] += n_ins
             self._finish_extend(cids, pids, cell_lv, cell_pr)
             return
-        n_ins = self._insert_new_patches(oc, on, os_, ov, okf, col, lv_l,
-                                         pr_l)
+        n_ins = self._route_extend(oc, on, os_, ov, okf, col, lv_l, pr_l,
+                                   cids[spec["src_sel"]])
         self.stats["extended"] += n_ins
         self._finish_extend(cids, pids, cell_lv, cell_pr)
         # step the spec to the next on-device generation: wave N+1's lanes
@@ -817,7 +987,7 @@ class Engine:
         """Blocking fetch of _spec_dispatch chunks -> one wave's 6 host
         arrays."""
         t0 = time.time()
-        outs = [tuple(t.cpu().numpy() for t in dev) for dev, _, _ in devs]
+        outs = [self._host_out(dev) for dev, _, _ in devs]
         self.stats["t_device"] += time.time() - t0
         if len(outs) == 1:
             return outs[0]
@@ -887,8 +1057,8 @@ class Engine:
         oc, on, os_, ov, ok, col = out
         out = (oc, on, os_, ov, ok & fresh, col)
         self._speculate_next(out, spec["lv_lanes"], spec["pr_lanes"])
-        n_ins = self._insert_new_patches(*out, spec["lv_lanes"],
-                                         spec["pr_lanes"])
+        n_ins = self._route_extend(*out, spec["lv_lanes"], spec["pr_lanes"],
+                                   cids[spec["src_sel"]])
         self._commit_spec()
         self.stats["extended"] += n_ins
         self._finish_extend(cids, pids, spec["levels"], spec["prio_red"])
@@ -979,14 +1149,27 @@ class Engine:
             ok = ok & winner
         return ok, keys
 
-    def _insert_new_patches(self, oc, on, os_, ov, ok, col, lv_t,
-                            prio_red) -> int:
-        """addConditional + insertion of new gated extend results: the
-        target leaf must be inside the root, empty and not finer
-        (doctree.h:396-419), with a deterministic first-wins dedup within
-        the batch standing in for the reference's sequential arrival order.
-        Accepted patches alloc a cell + patch row, scatter into the depth
-        buffers and queue at (level+prio_red)*10."""
+    def _route_extend(self, oc, on, os_, ov, ok, col, lv_t, prio_red,
+                      src_cids) -> int:
+        """Insert the gated extend candidates. Single-tree engine: all
+        candidates are local (the spatial engine overrides this to migrate
+        cross-shard candidates through the halo -- the distributeBorderCell
+        analog, CellProcessor.cpp:487-540)."""
+        del src_cids
+        return self._insert_new_patches(oc, on, os_, ov, ok, col, lv_t,
+                                        prio_red)
+
+    def _insert_new_patches(self, oc, on, os_, ov, ok, col, lv_t, prio_red,
+                            flatness: float = -1.0,
+                            dirty: bool = False) -> int:
+        """addConditional + insertion of new gated patches (extend results
+        or migrated border arrivals): the target leaf must be inside the
+        root, empty and not finer (doctree.h:396-419), with a deterministic
+        first-wins dedup within the batch standing in for the reference's
+        sequential arrival order. Accepted patches alloc a cell + patch row,
+        scatter into the depth buffers and queue at (level+prio_red)*10.
+        Border arrivals come with flatness 0 and dirty set
+        (CellProcessor.cpp:513-514, :443)."""
         # addConditional at the *optimized* position (CellProcessor.cpp:154)
         ok, keys = self._insert_winners(oc, ok, lv_t)
         acc = np.nonzero(ok)[0]
@@ -1005,10 +1188,10 @@ class Engine:
         self.patches.scale[new_pids] = os_[acc]
         self.patches.views[new_pids] = ov[acc]
         self.patches.color[new_pids] = col[acc]
-        self.patches.flatness[new_pids] = -1.0
+        self.patches.flatness[new_pids] = flatness
         self.patches.expanded[new_pids] = False
         self.patches.prio_red[new_pids] = pr_a
-        self.patches.dirty[new_pids] = False
+        self.patches.dirty[new_pids] = dirty
         self._last_inserted = new_pids
         self.insert_patches(new_pids, new_cids)
         if self._depths_pre_added:
@@ -1022,7 +1205,8 @@ class Engine:
         return len(acc)
 
     def _finish_extend(self, cids, pids, levels, prio_red):
-        """Mark expanded + requeue at phase 1 (CellProcessor.cpp:380-387)."""
+        """Mark expanded + requeue at phase 1 (CellProcessor.cpp:380-387).
+        Processing clears the dirty flag set by border arrivals."""
         self.patches.expanded[pids] = True
         self.patches.dirty[pids] = False
         self._push_many((levels + prio_red) * 10 + 1, cids)
@@ -1052,6 +1236,9 @@ class Engine:
         B = len(cids)
         flat_pts = pts.reshape(B * M, 3)
         owner = self.tree.containing_cell(flat_pts).reshape(B, M)
+        # a multi-process engine counts neighbour positions in other
+        # processes' blocks as present with zero plane error (0 here)
+        rc = self._remote_neighbor_counts(flat_pts).reshape(B, M).sum(1)
 
         # vectorized: distinct neighbor cells per row (sorted-row dedup),
         # first-patch centers straight from the cell-head array
@@ -1068,7 +1255,7 @@ class Engine:
         distinct = np.concatenate(
             [srt[:, :1] < imax,
              (srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] < imax)], axis=1)
-        n_neigh = distinct.sum(1)
+        n_neigh = distinct.sum(1) + rc
 
         pid_nb = np.where(distinct, first_pid[np.minimum(
             srt, len(uniq_cells) - 1)], -1)
@@ -1078,7 +1265,7 @@ class Engine:
             np.linalg.norm(normals, axis=1, keepdims=True), 1e-12)
         e = np.einsum("bj,bmj->bm", n_unit, pb - centers[:, None, :])
         sq = np.where(has_patch, e * e, 0.0)
-        cnt = has_patch.sum(1)
+        cnt = has_patch.sum(1) + rc
         rms = np.sqrt(sq.sum(1) / np.maximum(cnt, 1)) / widths
 
         flat = np.where(n_neigh < 1, opt.FLATNESS_NO_NEIGH,
@@ -1121,7 +1308,7 @@ class Engine:
         exhausted = support < 1
         work = np.nonzero(~exhausted)[0]
         self.stats["exhausted"] += int(exhausted.sum())
-        if len(work) == 0:
+        if self._count_global(len(work)) == 0:
             return
 
         cam_x = self.cam_xaxis_np[np.maximum(views[work, 0], 0)]
@@ -1144,7 +1331,7 @@ class Engine:
 
         sel = np.nonzero(in_cell)[0]
         accepted = np.zeros(len(cand_c), bool)
-        if len(sel):
+        if self._count_global(len(sel)):
             c_in = cand_c[sel]
             n_in = normals[work][src[sel]]
             s_in = (widths[work][src[sel]] * opt.BRANCH_SCALE / 2.0

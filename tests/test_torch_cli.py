@@ -5,9 +5,10 @@ adjustment before seeding), --ba_dense_every (inside the loop) and
 --profile (a torch.profiler Chrome trace); a second --resume's from its
 checkpoint with --ba_dense (after the loop). Each writes patches-final.ply
 with >= 0.95 of its patches within 0.02 of the plane, the second within
-10% of the first's count. --platform (refused, naming
---device), --spatial and --image_subsets (not yet ported) exit with their
-messages."""
+10% of the first's count. --platform is refused, naming --device;
+--spatial and --image_subsets behave as the JAX CLI's on one device:
+--spatial fails for want of a device mesh, --image_subsets alone is
+ignored (it needs --spatial) and the run completes."""
 
 import json
 import os
@@ -77,16 +78,32 @@ def test_profile_writes_a_chrome_trace(first_run):
     assert len(trace["traceEvents"]) > 100
 
 
-@pytest.mark.parametrize("flag,message", [
-    (["--platform", "cpu"], "--device"),
-    (["--spatial"], "not yet ported"),
-    (["--image_subsets"], "not yet ported")])
-def test_refused_flags(plane, tmp_path, capsys, flag, message):
-    _, nvm = plane
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--nvm", nvm, "--outdir", str(tmp_path), "--device", "cpu",
-                  *flag])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flag[0] in err and message in err
-    assert not os.path.exists(tmp_path / "patches-final.ply")
+@pytest.mark.parametrize("flag,outcome,message", [
+    (["--platform", "cpu"], "exit", "--device"),
+    (["--spatial"], "raise", "spatial=True requires a device mesh"),
+    (["--image_subsets"], "run", None)])
+def test_refused_flags(plane, tmp_path, capsys, flag, outcome, message):
+    """On one device (no mesh): --platform exits naming --device;
+    --spatial raises the JAX CLI's ValueError before any output;
+    --image_subsets without --spatial is ignored, as in the JAX pipeline,
+    and a short run (MAX_TREE_LEVEL 4) writes its cloud."""
+    ps, nvm = plane
+    argv = ["--nvm", nvm, "--outdir", str(tmp_path), "--device", "cpu",
+            "--start_level", "1", "--max_views", "6", "--covis_min_points",
+            "10", "--maxtreelevel", "4", *flag]
+    if outcome == "exit":
+        with pytest.raises(SystemExit) as e:
+            cli.main(argv)
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert flag[0] in err and message in err
+        assert not os.path.exists(tmp_path / "patches-final.ply")
+    elif outcome == "raise":
+        with pytest.raises(ValueError, match=message):
+            cli.main(argv)
+        assert not os.path.exists(tmp_path / "patches-final.ply")
+    else:
+        assert cli.main(argv) == 0
+        got = read_ext_ply(str(tmp_path / "patches-final.ply"))
+        assert len(got["xyz"]) > 0
+        assert (np.abs(got["xyz"][:, 2] - ps.plane_z) < 0.02).mean() >= 0.95

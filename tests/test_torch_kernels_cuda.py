@@ -128,3 +128,35 @@ def test_score_paths_match_twin(results, W, offset):
     pt, pc = score.sample_windows_twin(geom, win, True)
     assert float((kt - pt).abs().max()) <= 2e-5
     assert float(((kc - pc).abs() / pc.abs().clamp(min=1.0)).max()) <= 2e-5
+
+
+def test_fetch_kernel_reads_a_slab(results):
+    """The fetch kernel on a per-shard image slab (parallel/subsets.py:
+    block-local row table, absent cameras with zero dims) at the windows
+    the main path cuts there: bit-equal to its twin, and equal to the
+    windows of the full pack wherever the plane holds a whole window."""
+    from hpmvs_tpu_torch.parallel import mesh as pmesh
+    from hpmvs_tpu_torch.parallel import subsets
+    opt = dataclasses.replace(Options(), START_LEVEL=2, MAX_VIEWS=8,
+                              COVIS_MIN_POINTS=30)
+    ps = make_plane_scene(n_cams=7, imgsize=512, n_points=400, seed=0)
+    sc = scene_mod.build_scene(ps.model, opt, images=ps.images, device="cuda")
+    c, n, s, v, _ = scene_mod.make_seed_patches(ps.model, sc, opt)
+    mask = np.zeros((2, 7), bool)
+    mask[0, [0, 2, 3, 6]] = True
+    mask[1, 1:] = True
+    slabs = subsets.place_block_pack(pmesh.make_mesh(["cuda"] * 2),
+                                     subsets.build_block_packs(sc.ctx.imgs,
+                                                               mask))
+    vt = torch.as_tensor(v, device="cuda")
+    center = torch.as_tensor(c, device="cuda")[:, None].expand(
+        vt.shape + (3,))
+    scale = torch.as_tensor(s, device="cuda")[:, None].expand(vt.shape)
+    kernels.reset_counts()
+    for slab in slabs:
+        r = kernel_check.check_fetch_slab(sc.ctx.cams, slab, sc.ctx.imgs, vt,
+                                          center, scale, opt.MAXLEVEL - 1,
+                                          opt.WINDOW_SIZE, reps=3)
+        assert r["equal_twin"] and r["equal_full"], r
+        assert 0 < r["compared"] and r["live"] < r["n"]
+    assert kernels.STATS["fetch"].launches > 0

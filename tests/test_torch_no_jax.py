@@ -4,10 +4,12 @@ A fresh interpreter imports the port's whole main path, builds a scene with
 its own testing module and optimizes one seed batch on the CPU on each
 refiner path (batched stages, the per-patch stages with the reference's
 setRefImage and the FD/Broyden GN mode, the plain jacfwd refiner); then
-imports this slice's modules (eval, export, checkpoint, streaming, bundle
-adjustment), round-trips a checkpoint, extends a stream by one chunk and
-solves a tiny bundle adjustment; neither jax nor hpmvs_tpu may appear in
-sys.modules afterwards."""
+imports the modules of the single-device system (eval, export,
+checkpoint, streaming, bundle adjustment), round-trips a checkpoint,
+extends a stream by one chunk and solves a tiny bundle adjustment; then
+imports the mesh, image subsets and spatial engine and runs one priority
+step of a 2-shard spatial engine with image subsets; neither jax nor
+hpmvs_tpu may appear in sys.modules afterwards."""
 
 import os
 import subprocess
@@ -76,6 +78,18 @@ _, _, hist = ba.ba_solve(prob, 4, ps.model.n_points, iters=2, cg_iters=5,
 assert bool(torch.isfinite(hist).all())
 peval.plane_metrics(eng2.alive_arrays()[0].astype(np.float64), 0.0, 1.0,
                     0.02)
+
+from hpmvs_tpu_torch.parallel import mesh as pmesh
+from hpmvs_tpu_torch.parallel import subsets
+from hpmvs_tpu_torch.runtime.spatial import SpatialEngine
+mesh = pmesh.make_mesh(["cpu"] * 2)
+sp = SpatialEngine(ps.model, opt, images=ps.images, mesh=mesh,
+                   image_subsets=True)
+sp.seed()
+pmin = min(sp.queue)
+assert sp.process_priority_step(pmin)
+assert sp.n_alive() > 0 and sp.stats["subset_rebuilds"] >= 1
+assert sp.stats["slab_miss"] == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "hpmvs_tpu"))
 print("BAD", bad)

@@ -137,8 +137,13 @@ def test_cli_writes_final_ply(tmp_path):
 
 
 def test_cli_refuses_unported_flags(tmp_path):
+    """--platform is refused (argparse exit); --spatial and --image_subsets
+    are ported: the parser takes them, and the run over an NVM without a
+    model then fails as the JAX CLI's does (ValueError)."""
     nvm = tmp_path / "x.nvm"
     nvm.write_text("NVM_V3\n0")
-    for flag in (["--spatial"], ["--image_subsets"], ["--platform", "cpu"]):
-        with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit):
+        cli.main(["--nvm", str(nvm), "--device", "cpu", "--platform", "cpu"])
+    for flag in (["--spatial"], ["--image_subsets"]):
+        with pytest.raises(ValueError, match="no models"):
             cli.main(["--nvm", str(nvm), "--device", "cpu"] + flag)

@@ -18,6 +18,9 @@ against hpmvs_tpu/runtime/streaming.py on the CPU.
   chunk lies outside the first chunk's root cube, so the tree reroots and
   every queued priority shifts +10 per reroot; the reroot of the port's
   Engine.reroot_tree equals the JAX engine's on the same tree and queue.
+- tests/test_streaming.py:166's composition on the port (streaming +
+  spatial engine over 4 CPU shards + image subsets + checkpoint/resume):
+  the resumed run within max(8%, 30) of the uninterrupted one.
 """
 
 import dataclasses
@@ -197,3 +200,57 @@ def test_reroot_tree_equals_jax(reroot_stream, direction):
     x = np.asarray(pe.alive_arrays()[0], np.float32)
     np.testing.assert_array_equal(pe.tree.containing_cell(x),
                                   je.tree.containing_cell(x))
+
+
+def test_streaming_spatial_subsets_checkpoint_compose(tmp_path):
+    """tests/test_streaming.py:166-215 composed on the port: streaming
+    chunks with a reroot into a spatial engine over 4 CPU shards with
+    per-shard image slabs, checkpointed mid-run with live migration state,
+    resumed into a FRESH spatial engine over the merged model, finishing
+    within max(8%, 30) of the uninterrupted run's alive count, both with
+    the median distance to the plane < 0.02 and slab_miss == 0. On the
+    reroot plane above (5 cameras x 192 px, 80 points sorted by x, split
+    3 + 40 / 2 + 40) with MAX_TREE_LEVEL 6, so that work remains after the
+    checkpoint at prio 55. The stream is run once: the uninterrupted run
+    goes on from the state the checkpoint was taken of (the JAX test
+    streams twice to the same midpoint; the run is deterministic)."""
+    from hpmvs_tpu_torch.parallel import mesh as pmesh
+    from hpmvs_tpu_torch.runtime.spatial import SpatialEngine
+
+    scene = make_plane_scene(n_cams=5, imgsize=192, n_points=80, seed=5)
+    scene = dataclasses.replace(scene, model=sort_points_by_x(scene.model))
+    first, second = split_model(scene.model, 3, np.arange(40))
+    opt = dataclasses.replace(POptions(), **dict(REROOT, MAX_TREE_LEVEL=6))
+    mesh = pmesh.make_mesh(["cpu"] * 4)
+
+    def stream_to_mid():
+        se = PStream(opt, mesh=mesh, spatial=True, image_subsets=True)
+        assert se.add_chunk(first, images=scene.images[:3]) > 10
+        se.run_to(45)
+        assert se.add_chunk(second, images=scene.images[3:]) > 5
+        assert se.engine.stats["reroots"] >= 1       # the cube grew
+        se.run_to(55)
+        return se
+
+    se_a = stream_to_mid()
+    assert se_a.engine.stats["migrated"] > 0         # halo state exercised
+    assert se_a.engine.stats["subset_rebuilds"] >= 1  # slabs really built
+    path = str(tmp_path / "compose.npz")
+    pckpt.save_checkpoint(se_a.engine, path)
+    eng_c = SpatialEngine(se_a.model, opt, images=se_a.images, mesh=mesh,
+                          image_subsets=True)
+    eng_a = se_a.run_to(opt.max_prio - 1)
+    pckpt.load_checkpoint(eng_c, path, device="cpu")
+    pckpt.requeue_from_tree(eng_c)
+    for p in range(opt.max_prio):
+        eng_c.process_priority_step(p)
+        if not eng_c.have_work():
+            break
+    n_a, n_c = eng_a.n_alive(), eng_c.n_alive()
+    assert abs(n_c - n_a) <= max(0.08 * n_a, 30), (n_a, n_c)
+    for e in (eng_a, eng_c):
+        c = e.alive_arrays()[0]
+        assert np.median(np.abs(c[:, 2] - scene.plane_z)) < 0.02
+        assert e.stats["slab_miss"] == 0
+    # both reached past the original cube (the reroot survived the file)
+    assert eng_c.alive_arrays()[0][:, 0].max() > 0.1

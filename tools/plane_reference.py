@@ -21,11 +21,23 @@ cameras x 128 px, 600 points, START_LEVEL=2, MAX_VIEWS=9,
 COVIS_MIN_POINTS=8), its accuracy also the fraction within 4 ground sample
 distances (the ring's level-0 GSD, 0.0228, is above 0.02); "ring30", the
 same cut to 30 cameras and 120 points, the extent scaled by sqrt(30/150)
-as bench/stress_study.py scales it.
+as bench/stress_study.py scales it; "plane200", tests/test_spatial.py's
+plane (7 cameras x 512 px, 200 points, START_LEVEL=2, MAXLEVEL=4,
+COVIS_MIN_POINTS=10, MAX_TREE_LEVEL=8, WAVE_LOOKAHEAD=False unless
+--wave_depth or the switches say otherwise).
+
+--shards N runs both engines over an N-shard mesh: the JAX engine on N
+virtual CPU devices (XLA's --xla_force_host_platform_device_count, set
+before jax is imported), the port (--port) on N CPU shards
+(hpmvs_tpu_torch.parallel.mesh.make_mesh(["cpu"] * N)). --spatial runs the
+spatial engine (Morton blocks, halo migration) over that mesh and
+--image_subsets its per-shard image slabs; the output then carries the
+engine's migration and slab counters.
 
     JAX_PLATFORMS=cpu python tools/plane_reference.py FAST_SETREF=False \\
         LM_EXACT_J=False [--wave_depth N] [--no_lookahead] [--port] [--kernel]
-        [--scene plane|small|facade|ring|ring30]
+        [--scene plane|small|facade|ring|ring30|plane200]
+        [--shards N [--spatial [--image_subsets]]]
 
 On the CPU the JAX engine refines with its plain XLA refiner
 (optimizer._optimize_patch), not with its GN kernel: with LM_EXACT_J=False
@@ -58,6 +70,9 @@ SCENES = {
                dict(START_LEVEL=2, MAX_VIEWS=8, COVIS_MIN_POINTS=10,
                     MAX_TREE_LEVEL=8, PATCH_FINAL_MINLEVEL=4)),
     "ring": (dict(), dict(START_LEVEL=2, MAX_VIEWS=9, COVIS_MIN_POINTS=8)),
+    "plane200": (dict(n_cams=7, imgsize=512, n_points=200, seed=0),
+                 dict(START_LEVEL=2, MAXLEVEL=4, COVIS_MIN_POINTS=10,
+                      MAX_TREE_LEVEL=8)),
     "ring30": (dict(n_cams=30, imgsize=128, n_points=120,
                     extent=8.0 * (30 / 150) ** 0.5, seed=0),
                dict(START_LEVEL=2, MAX_VIEWS=9, COVIS_MIN_POINTS=8)),
@@ -66,6 +81,13 @@ RING_GSD = 3.5 / (128 * 1.2)
 WAVE_STATS = ("dispatches", "lookahead_hits", "lookahead_misses",
               "disp_deep", "deep_gens_consumed", "deep_fallbacks",
               "spec_waste_lanes")
+# the spatial engine's counters (reported with --spatial)
+SPATIAL_STATS = ("migrated", "halo_arrivals", "migrated_inserted",
+                 "halo_hops", "halo_bytes_wire", "halo_bytes_logical",
+                 "block_work_lanes", "block_balance_den", "rebalances",
+                 "subset_rebuilds", "subset_rows_per_block",
+                 "subset_rows_replicated", "subset_cams_max",
+                 "subset_cams_mean", "slab_miss")
 
 
 def _run(pipeline_mod, options_cls, ps, dist, base, switches, out, gsd=None,
@@ -79,6 +101,8 @@ def _run(pipeline_mod, options_cls, ps, dist, base, switches, out, gsd=None,
     st = eng.stats
     extra = {} if gsd is None else {
         "frac_within_4gsd": float((d < 4 * gsd).mean())}
+    if kw.get("spatial"):
+        extra["spatial"] = {k: st[k] for k in SPATIAL_STATS if k in st}
     return dict(alive=int(eng.n_alive()),
                 frac_within_002=float((d < 0.02).mean()), **extra,
                 patches_optimized=int(st["patches_optimized"]),
@@ -102,7 +126,20 @@ def main(argv=None):
                     help="JAX engine on its TPU path: the GN kernel in "
                          "interpret mode")
     ap.add_argument("--scene", choices=sorted(SCENES), default="plane")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="run over a mesh of this many shards (virtual CPU "
+                         "devices for the JAX engine)")
+    ap.add_argument("--spatial", action="store_true",
+                    help="the spatial engine over the --shards mesh")
+    ap.add_argument("--image_subsets", action="store_true",
+                    help="with --spatial: per-shard image slabs")
     args = ap.parse_args(argv)
+    if args.spatial and args.shards < 1:
+        ap.error("--spatial needs --shards")
+    if args.shards:
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "")
+            + f" --xla_force_host_platform_device_count={args.shards}")
     switches = {k: ast.literal_eval(v) for k, v in
                 (s.split("=", 1) for s in args.switches)}
     import jax
@@ -119,10 +156,21 @@ def main(argv=None):
     import numpy as np
     from hpmvs_tpu import testing
     jdef = JOptions()
+    asked = set(switches)
     switches["WAVE_DEPTH"] = (jdef.WAVE_DEPTH if args.wave_depth is None
                               else args.wave_depth)
     switches["WAVE_LOOKAHEAD"] = (jdef.WAVE_LOOKAHEAD
                                   and not args.no_lookahead)
+    if (args.scene == "plane200" and "WAVE_LOOKAHEAD" not in asked
+            and not args.no_lookahead):
+        # tests/test_spatial.py's Options switch the lookahead off
+        switches["WAVE_LOOKAHEAD"] = False
+    mesh_kw = {}
+    if args.shards:
+        from hpmvs_tpu.parallel import mesh as jmesh
+        mesh_kw = dict(mesh=jmesh.make_mesh(args.shards),
+                       spatial=args.spatial,
+                       image_subsets=args.image_subsets)
     scene_kw, base = SCENES[args.scene]
     gsd = None
     if args.scene == "facade":
@@ -140,16 +188,22 @@ def main(argv=None):
         def dist(c):
             return np.abs(c[:, 2] - ps.plane_z)
     tmp = tempfile.mkdtemp(prefix="plane_reference_")
-    res = {"scene": args.scene, "switches": switches,
+    res = {"scene": args.scene, "switches": switches, "shards": args.shards,
+           "spatial": args.spatial, "image_subsets": args.image_subsets,
            "jax_kernel_interpret" if args.kernel else "jax_cpu": _run(
         jpipe, JOptions, ps, dist, base, switches, os.path.join(tmp, "jax"),
-        gsd=gsd, mesh=None)}
+        gsd=gsd, **(mesh_kw or dict(mesh=None)))}
     if args.port:
         from hpmvs_tpu_torch.config import Options as POptions
         from hpmvs_tpu_torch.runtime import pipeline as ppipe
+        port_kw = {}
+        if args.shards:
+            from hpmvs_tpu_torch.parallel import mesh as pmesh
+            port_kw = dict(mesh_kw, mesh=pmesh.make_mesh(["cpu"]
+                                                         * args.shards))
         res["port_cpu"] = _run(ppipe, POptions, ps, dist, base, switches,
                                os.path.join(tmp, "port"), gsd=gsd,
-                               device="cpu")
+                               device="cpu", **port_kw)
     print(json.dumps(res), flush=True)
 
 
