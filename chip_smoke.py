@@ -74,7 +74,9 @@ Phases, each printing one JSON line:
                  memory; apply_dense_ba: RMS falls > 5x, the centre error
                  >= 3x, the z-buffer replayed.
  12. facade_exactref_fd -- the same facade with FAST_SETREF=False and
-                 LM_EXACT_J=False, under its own wall budget, same checks.
+                 LM_EXACT_J=False, one octree level shallower
+                 (MAX_TREE_LEVEL=8), under its own wall budget, same
+                 checks.
  13. facade_stream -- the facade through StreamingEngine in two chunks
                  (cameras 0-5 with the wedge's left face, one octree level,
                  then cameras 6-10 with the right face), then to completion
@@ -121,13 +123,51 @@ Phases, each printing one JSON line:
                  (cameras 0-3, then 4-6) into a 4-shard spatial engine with
                  image subsets: the old z-buffer prefix unchanged across the
                  extension, alive within 10% of plane_spatial's.
-Phases 8-10, 13, 14 and 16-19 launch the default path's kernels and no
-twin (each prints its launches per kernel and its twin calls); phases 11
-and 15 solve and replay the z-buffer only.
+ The multi-process system: two processes (chip_smoke.py --mp-worker
+ <rank> <port> <phase>, started by this script, each with its own
+ timeout), one gloo process group (parallel/mesh.init_distributed, an
+ explicit address on 127.0.0.1, world size 2), each process's shards on
+ the one card; a worker that fails fails the phase:
+ 20. plane_mp_mesh -- plane_mesh's plane and Options through pipeline.run
+                 over 2 processes x 2 shards: the replicated engine
+                 (every dispatch's outputs allgathered); alive on both
+                 processes EQUAL to plane_mesh's, the z-buffers the same
+                 bits on both; the loop wall beside plane_mesh's and the
+                 bytes gathered per dispatch.
+ 21. plane_mp_owned -- plane_spatial's plane and Options through
+                 pipeline.run over 2 processes x 4 shards with image
+                 subsets: the owned engine to completion; alive within 10%
+                 of the JAX owned engine's at one process (its root cube
+                 is the SfM points', not the seeds', so its count differs
+                 from plane_spatial's, printed beside it), each
+                 process's share > 10%, every
+                 local patch owned, migrations summed equal to arrivals
+                 summed, slab_miss 0, the fetch kernel on each process's
+                 busiest committed slab bit-equal to its twin; a
+                 per-process checkpoint at the end of the first level
+                 with work, loaded into fresh owned engines (state equal)
+                 and resumed by pipeline.run(resume=...) to within 10%;
+                 owned dense BA on the final cloud with
+                 tests/multihost_worker.py's drift: RMS falls > 3x, the
+                 camera error > 2x, the cameras the same bits on both
+                 processes.
+ 22. ring_mp_owned -- the ring plane on the owned engine with image
+                 subsets, 2 processes x 4 shards, under a wall budget the
+                 processes agree on: the shares within 0.02 and within 4
+                 GSD at most 0.02 below the JAX owned engine's at one
+                 process, alive within 10% of its when the run completes
+                 (ring_spatial_subsets' beside: the owned engine's cube,
+                 1.2x the SfM points' extent, is about twice the seeds'
+                 here, so its reconstruction is coarser); host
+                 collectives per wave and the bytes that cross processes.
+Phases 8-10, 13, 14 and 16-22 launch the default path's kernels and no
+twin (each prints its launches per kernel and its twin calls; phases 20-22
+summed over both processes); phases 11 and 15 solve and replay the
+z-buffer only.
 Any failed check raises (exit code 1). The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels (ms is
 device_ms; call_ms beside it; launches from the plane at the defaults, gn_fd
-from plane_exactref_fd; launches_by_phase from phases 16-19).
+from plane_exactref_fd; launches_by_phase from phases 16-22).
 
 python3 chip_smoke.py --profile instead builds the kernels and runs the
 plane at the defaults and on the classic engine in turns (default, classic,
@@ -144,6 +184,9 @@ patches/s, device busy time and idle share.
 
 python3 chip_smoke.py --facade-waves builds the kernels and runs the facade
 on the classic engine, then at the defaults (the facade phase's checks).
+
+python3 chip_smoke.py --mp builds the kernels and runs plane_mesh once (its
+run-to-run spread beside the next run), then phases 16-18 and 20-22.
 """
 
 import contextlib
@@ -178,6 +221,11 @@ PLANE_EXACTREF_FD_JAX_CPU_ALIVE = 15727
 FACADE_MAX_TREE_LEVEL = 9          # of the default-path facade
 FACADE_BUDGET_S = 420.0
 FACADE_EXACTREF_FD_BUDGET_S = 420.0
+# one level shallower than the default-path facade: level 9 held 98% of
+# its patches and most of its 104-113 s loop (NVIDIA H100 80GB HBM3,
+# 700.00 W), and the multi-process phases need the time (the checks read
+# the first level and the kernels' launches)
+FACADE_EXACTREF_FD_MAX_TREE_LEVEL = 8
 # plane_resume: the plane's seeds sit at octree levels 5 and 6 (prios 50,
 # 60), so the first run stops after level 5's steps and resumes level 6 on
 RESUME_STOP = 60
@@ -1086,7 +1134,7 @@ def plane_mesh_phase(device):
           <= 0.1 * PLANE_MESH_JAX_CPU_ALIVE,
           f"plane_mesh: {eng.n_alive()} alive vs "
           f"{PLANE_MESH_JAX_CPU_ALIVE} (JAX)")
-    return launches
+    return launches, eng.n_alive(), float(eng.stats["proc_time"])
 
 
 def ws_ok(eng):
@@ -1156,9 +1204,8 @@ def ring_spatial_subsets_phase(device):
     pack (a mesh of several cards divides it)."""
     import numpy as np
     import torch
-    from hpmvs_tpu_torch import kernel_check, kernels
+    from hpmvs_tpu_torch import kernels
     from hpmvs_tpu_torch.config import Options
-    from hpmvs_tpu_torch.image.pyramid import ImagePack
     from hpmvs_tpu_torch.runtime.spatial import SpatialEngine
     from hpmvs_tpu_torch.testing import make_ring_plane_scene
     sc = make_ring_plane_scene()
@@ -1184,24 +1231,7 @@ def ring_spatial_subsets_phase(device):
           "ring_spatial_subsets: no slab was committed")
     slab_bytes = [int(s.tex.numel() * 4) for s in eng._bpack_dev]
     full_bytes = int(eng.scene.ctx.imgs.tex.numel() * 4)
-    # the fetch kernel on the busiest shard's committed slab
-    s = int(np.argmax(eng._committed_mask.sum(1)))
-    p = eng.patches
-    pids = np.nonzero(p.alive[:p.n])[0]
-    pids = pids[eng.block_shard[eng.block_of_points(p.center[pids])] == s]
-    pids = pids[:2048]
-    imgs = eng.scene.ctx.imgs
-    full = ImagePack(tex=imgs.tex.to(device), row0=imgs.row0,
-                     width=imgs.width, height=imgs.height)
-    ci = torch.as_tensor(p.views[pids], device=device)
-    cen = torch.as_tensor(p.center[pids], device=device)[:, None].expand(
-        ci.shape + (3,))
-    scl = torch.as_tensor(p.scale[pids], device=device)[:, None].expand(
-        ci.shape)
-    slab_check = kernel_check.check_fetch_slab(
-        eng.scene.ctx.cams, eng._bpack_dev[s], full, ci, cen, scl,
-        opt.MAXLEVEL - 1, opt.WINDOW_SIZE)
-    del full
+    slab_check = slab_fetch(eng, opt)
     n_opt = int(eng.stats["patches_optimized"])
     emit("ring_spatial_subsets", shards=mesh.size, blocks=eng.n_blocks,
          cameras=len(sc.model.cameras), imgsize=sc.imgsize,
@@ -1215,7 +1245,7 @@ def ring_spatial_subsets_phase(device):
          cams_per_shard=[int(x) for x in eng._committed_mask.sum(1)],
          slab_bytes=slab_bytes, slabs_sum_bytes=sum(slab_bytes),
          replicated_pack_bytes=full_bytes, max_memory_allocated=peak,
-         slab_fetch=dict(shard=s, patches=len(pids), **slab_check),
+         slab_fetch=slab_check,
          hist=[int(x) for x in eng.tree.histogram()],
          launches=launches, twin_calls=twins, **sp)
     check_path("ring_spatial_subsets", "default", launches, twins)
@@ -1236,7 +1266,7 @@ def ring_spatial_subsets_phase(device):
           f"ring_spatial_subsets: {frac} within 0.02")
     check(frac_4gsd >= RING_SUBSETS_JAX_CPU_WITHIN_4GSD - 0.02,
           f"ring_spatial_subsets: {frac_4gsd} within 4 GSD")
-    return launches
+    return launches, eng.n_alive(), frac, frac_4gsd
 
 
 def noisy_ba_problem(prob, device):
@@ -1419,6 +1449,544 @@ def plane_stream_spatial_phase(device, spatial_alive):
     return launches
 
 
+# ----------------------------------------------------------------------
+# the multi-process system: two processes on the one card, one gloo group
+# ----------------------------------------------------------------------
+MP_PROCESSES = 2
+MP_MESH_SHARDS = 2             # per process: plane_mp_mesh's 4 shards
+MP_OWNED_SHARDS = 4            # per process: the owned phases' 8 shards
+MP_GROUP_TIMEOUT_S = 300.0     # a collective one process skips fails
+MP_START_S = 120.0             # a worker's start-up, scene and exit
+PLANE_MP_OWNED_BUDGET_S = 240.0
+# the owned engine's count is held to the JAX owned engine's, not to the
+# spatial engine's: its root cube is pinned to the SfM points' cube (the
+# seeds' cube in the spatial engine), and the final density is
+# resolution-bound at a cell size. tools/plane_reference.py --scene
+# plane200 --shards 8 --spatial --owned --port: JAX 21181 alive at one
+# process over 8 virtual CPU devices (the spatial engine: 19973), the port
+# 21415 on 8 CPU shards; 1.000 within 0.02 for both.
+PLANE_OWNED_JAX_CPU_ALIVE = 21181
+RING_MP_BUDGET_S = 240.0
+# the same for the ring (--scene ring --shards 8 --spatial --image_subsets
+# --owned): the JAX owned engine at one process keeps 18479 patches, 0.0796
+# within 0.02 and 0.2699 within 4 GSD -- the ring's SfM points span about
+# twice its seeds' extent, so the pinned cube's cells are twice as coarse
+# as the spatial engine's (ring_spatial_subsets: ~59000, 0.77 / 0.94)
+RING_OWNED_JAX_CPU_ALIVE = 18479
+RING_OWNED_JAX_CPU_WITHIN_002 = 0.0796
+RING_OWNED_JAX_CPU_WITHIN_4GSD = 0.2699
+MP_SHARE_FLOOR = 0.10          # each process's share of the patches
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def mp_run(phase, budget, *args):
+    """Start MP_PROCESSES workers (`chip_smoke.py --mp-worker <rank> <port>
+    <phase> [args]`, one gloo group on 127.0.0.1 with an explicit address
+    and world size) and return each one's result. A worker that fails or
+    outlives its timeout fails the phase; every worker is stopped."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", os.path.abspath(__file__), "--mp-worker",
+         str(r), str(port), phase] + [str(a) for a in args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MP_PROCESSES)]
+    outs = [None] * MP_PROCESSES
+    deadline = time.time() + budget + MP_START_S
+    try:
+        for r, p in enumerate(procs):
+            try:
+                outs[r] = p.communicate(
+                    timeout=max(deadline - time.time(), 10.0))[0]
+            except subprocess.TimeoutExpired:
+                check(False, f"{phase}: worker {r} outlived its "
+                             f"{budget + MP_START_S:.0f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    res = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        with open(os.path.join(OUT_DIR, f"{phase}_worker{r}.log"), "w") as fh:
+            fh.write(out)
+        check(p.returncode == 0, f"{phase}: worker {r} exit "
+                                 f"{p.returncode}:\n{out[-3000:]}")
+        line = [ln for ln in out.splitlines() if ln.startswith("MP_RESULT ")]
+        check(bool(line), f"{phase}: worker {r} printed no result")
+        res.append(json.loads(line[-1].split(" ", 1)[1]))
+    return res
+
+
+def mp_sum(res, key):
+    """A per-worker {kernel: count} summed over the workers."""
+    return {k: sum(r[key][k] for r in res) for k in res[0][key]}
+
+
+def mp_same(x):
+    """True on every process when x (a host array) is the same bits on
+    all of them."""
+    import numpy as np
+    from hpmvs_tpu_torch.parallel import mesh as pmesh
+    g = pmesh.allgather(np.ascontiguousarray(x))
+    return bool(all(np.array_equal(g[0], gi) for gi in g[1:]))
+
+
+def mp_worker(rank, port, phase, *args):
+    """One process of a multi-process phase: brings up the group, drives
+    the phase's path and prints its result as `MP_RESULT {...}`."""
+    import torch
+    from hpmvs_tpu_torch.parallel import mesh as pmesh
+    check(pmesh.init_distributed(f"tcp://127.0.0.1:{port}", MP_PROCESSES,
+                                 rank, timeout_s=MP_GROUP_TIMEOUT_S)
+          == MP_PROCESSES, "the process group did not come up")
+    fn = {"plane_mp_mesh": plane_mp_mesh_worker,
+          "plane_mp_owned": plane_mp_owned_worker,
+          "ring_mp_owned": ring_mp_owned_worker}[phase]
+    res = fn(rank, *args)
+    print("MP_RESULT " + json.dumps(res), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def plane_mp_mesh_worker(rank):
+    """plane_mesh's plane and Options through pipeline.run over a mesh of
+    MP_PROCESSES x MP_MESH_SHARDS shards: the replicated engine, each
+    process computing its own shards' lanes, every dispatch's outputs
+    allgathered."""
+    import numpy as np
+    import torch
+    from hpmvs_tpu_torch import kernels
+    from hpmvs_tpu_torch.parallel import mesh as pmesh
+    from hpmvs_tpu_torch.runtime import pipeline
+    opt, ps, _, _ = plane_setup("cuda")
+    opt = dataclasses.replace(opt, OUTFOLDER=os.path.join(
+        OUT_DIR, "plane_mp_mesh"))
+    mesh = pmesh.make_mesh(["cuda"] * MP_MESH_SHARDS)
+    torch.cuda.synchronize()
+    wire0 = dict(pmesh.WIRE)
+    kernels.reset_counts()
+    t = time.time()
+    eng = pipeline.run(ps.model, opt, images=ps.images, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches, twins = launch_counts()
+    c = eng.alive_arrays()[0]
+    st = eng.stats
+    return dict(
+        rank=rank, engine=type(eng).__name__, shards=mesh.size,
+        mesh_shape=list(mesh.shape), local_shards=mesh.local_ids.tolist(),
+        wall_s=wall, loop_s=float(st["proc_time"]), alive=eng.n_alive(),
+        frac_within_002=float((np.abs(c[:, 2] - ps.plane_z) < 0.02).mean()),
+        disp_extend=int(st["disp_extend"]),
+        host_collectives=int(st["host_collectives"]),
+        gather_bytes=int(st["mp_gather_bytes"]),
+        wire_calls=pmesh.WIRE["calls"] - wire0["calls"],
+        wire_bytes=pmesh.WIRE["bytes"] - wire0["bytes"],
+        replicas_equal=all(torch.equal(r, eng.pack.depth)
+                           for r in eng._replicas() if r is not None),
+        zbuffer_same_across=mp_same(eng.pack.depth.cpu().numpy()),
+        launches=launches, twin_calls=twins, **wave_stats(eng))
+
+
+def plane_mp_mesh_phase(mesh_alive, mesh_loop_s):
+    """The replicated multi-process engine: alive equal to plane_mesh's
+    (the same 4-shard mesh in one process, the same scheduler)."""
+    budget = budget_left(120.0)
+    check(budget > 30.0, f"plane_mp_mesh: only {budget:.0f} s left")
+    res = mp_run("plane_mp_mesh", budget)
+    launches, twins = mp_sum(res, "launches"), mp_sum(res, "twin_calls")
+    emit("plane_mp_mesh", processes=MP_PROCESSES,
+         shards_per_process=MP_MESH_SHARDS, shards=res[0]["shards"],
+         mesh_shape=res[0]["mesh_shape"],
+         alive=[r["alive"] for r in res], plane_mesh_alive=mesh_alive,
+         loop_s=[r["loop_s"] for r in res], plane_mesh_loop_s=mesh_loop_s,
+         wall_s=[r["wall_s"] for r in res],
+         frac_within_002=res[0]["frac_within_002"],
+         dispatches=res[0]["dispatches"],
+         gather_bytes_per_dispatch=[r["gather_bytes"]
+                                    / max(r["disp_extend"], 1) for r in res],
+         host_collectives=[r["host_collectives"] for r in res],
+         wire_bytes=[r["wire_bytes"] for r in res],
+         lookahead_hits=res[0]["lookahead_hits"],
+         lookahead_misses=res[0]["lookahead_misses"],
+         launches=launches, twin_calls=twins)
+    check_path("plane_mp_mesh", "default", launches, twins)
+    for r in res:
+        check(r["engine"] == "Engine", f"plane_mp_mesh: {r['engine']}")
+        check(r["alive"] == mesh_alive,
+              f"plane_mp_mesh: rank {r['rank']} {r['alive']} alive vs "
+              f"plane_mesh's {mesh_alive}")
+        check(r["replicas_equal"] and r["zbuffer_same_across"],
+              "plane_mp_mesh: the z-buffer replicas differ")
+        check(r["frac_within_002"] >= 0.95,
+              f"plane_mp_mesh: {r['frac_within_002']} within 0.02")
+    return launches
+
+
+def mp_owned_state(eng, rank):
+    """The owned checks every process can make: its share, the ownership
+    invariant, migrations against arrivals (summed over processes),
+    slab_miss."""
+    import numpy as np
+    from hpmvs_tpu_torch.parallel import mesh as pmesh
+    p = eng.patches
+    live = np.nonzero(p.alive[:p.n])[0]
+    own = eng.block_proc[eng.block_of_points(p.center[live])]
+    st = eng.stats
+    mig = pmesh.allgather(np.asarray([st["migrated"], st["halo_arrivals"],
+                                      len(live)], np.int64))
+    return dict(local_alive=int(len(live)),
+                shares=(mig[:, 2] / max(mig[:, 2].sum(), 1)).tolist(),
+                owned_invariant=bool((own == rank).all()),
+                migrated_sum=int(mig[:, 0].sum()),
+                arrivals_sum=int(mig[:, 1].sum()),
+                slab_miss=int(st["slab_miss"]),
+                host_collectives=int(st["host_collectives"]),
+                halo_bytes_xproc=int(st["halo_bytes_xproc"]),
+                pend_gathered_rows=int(st["pend_gathered_rows"]),
+                subset_rebuilds=int(st["subset_rebuilds"]),
+                cams_per_shard=[int(x) for x in eng._committed_mask[
+                    eng.mesh.local].sum(1)]
+                if eng._committed_mask is not None else None)
+
+
+def slab_fetch(eng, opt):
+    """The fetch kernel on this process's busiest committed slab, at the
+    windows its resident patches cut there, against its twin and the full
+    pack's windows."""
+    import numpy as np
+    import torch
+    from hpmvs_tpu_torch import kernel_check
+    from hpmvs_tpu_torch.image.pyramid import ImagePack
+    loc = eng.mesh.local_ids
+    s = int(loc[np.argmax(eng._committed_mask[loc].sum(1))])
+    p = eng.patches
+    pids = np.nonzero(p.alive[:p.n])[0]
+    pids = pids[eng.block_shard[eng.block_of_points(p.center[pids])] == s]
+    pids = pids[:2048]
+    dev = eng.device
+    imgs = eng.scene.ctx.imgs
+    full = ImagePack(tex=imgs.tex.to(dev), row0=imgs.row0, width=imgs.width,
+                     height=imgs.height)
+    ci = torch.as_tensor(p.views[pids], device=dev)
+    cen = torch.as_tensor(p.center[pids], device=dev)[:, None].expand(
+        ci.shape + (3,))
+    scl = torch.as_tensor(p.scale[pids], device=dev)[:, None].expand(
+        ci.shape)
+    out = kernel_check.check_fetch_slab(
+        eng.scene.ctx.cams, eng._bpack_dev[s], full, ci, cen, scl,
+        opt.MAXLEVEL - 1, opt.WINDOW_SIZE)
+    return dict(shard=s, patches=len(pids), **out)
+
+
+def mp_dense_ba(eng):
+    """tests/multihost_worker.py's owned dense BA (:222-253): observations
+    under the true cameras, every camera but the two anchors drifted (one
+    seed: the same drift on every process), cameras + patches re-solved
+    over the process-spanning mesh."""
+    import copy
+    import numpy as np
+    from hpmvs_tpu_torch.parallel import ba
+    from hpmvs_tpu_torch.testing import _quatR, _rot_to_quat
+    cg, _, _, _, vg, _ = eng.alive_arrays()
+    true_model = eng.model
+    true_c = np.asarray([c.c for c in true_model.cameras])
+    prob_true = ba.build_dense_problem(true_model, cg, vg, device=eng.device)
+    rng = np.random.default_rng(11)
+    pert = copy.deepcopy(true_model)
+    for cam in pert.cameras[2:]:
+        w = rng.normal(0, 0.004, 3)
+        th = np.linalg.norm(w) + 1e-12
+        Km = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]],
+                       [-w[1], w[0], 0]]) / th
+        dR = np.eye(3) + np.sin(th) * Km + (1 - np.cos(th)) * (Km @ Km)
+        cam.rq = _rot_to_quat(_quatR(cam.rq) @ dR)
+        cam.c = cam.c + rng.normal(0, 0.01, 3)
+    pre = np.linalg.norm(np.asarray([c.c for c in pert.cameras]) - true_c,
+                         axis=1)
+    eng.model = pert
+    prob = ba.build_dense_problem(pert, cg, vg, device=eng.device)._replace(
+        m_uv=prob_true.m_uv)
+    t = time.time()
+    hist = np.asarray(ba.apply_dense_ba(eng, problem=prob))
+    solve_s = time.time() - t
+    cams = np.asarray([np.concatenate([c.rq, c.c])
+                       for c in eng.model.cameras])
+    post = np.linalg.norm(cams[:, 4:] - true_c, axis=1)
+    return dict(patches=len(cg), rms=[float(hist[0]), float(hist[-1])],
+                cam_err_median=[float(np.median(pre[2:])),
+                                float(np.median(post[2:]))],
+                solve_s=solve_s, cams_same_across=mp_same(cams))
+
+
+def plane_mp_owned_worker(rank):
+    """plane_spatial's plane and Options through pipeline.run over
+    MP_PROCESSES x MP_OWNED_SHARDS shards with image subsets: the owned
+    engine, to completion. Its state is checkpointed per process at the
+    end of the first octree level that had work; the shares load into
+    fresh owned engines (state equal) and pipeline.run(resume=...) runs
+    them to completion. Then owned dense BA on the completed cloud."""
+    import numpy as np
+    import torch
+    from hpmvs_tpu_torch import kernels
+    from hpmvs_tpu_torch.config import Options
+    from hpmvs_tpu_torch.parallel import mesh as pmesh
+    from hpmvs_tpu_torch.runtime import checkpoint as ckpt
+    from hpmvs_tpu_torch.runtime import pipeline
+    from hpmvs_tpu_torch.runtime.owned import OwnedSpatialEngine
+    from hpmvs_tpu_torch.testing import make_plane_scene
+    ps = make_plane_scene(n_cams=7, imgsize=512, n_points=200, seed=0)
+    out_dir = os.path.join(OUT_DIR, "plane_mp_owned")
+    opt = dataclasses.replace(Options(), **SPATIAL_OPT, OUTFOLDER=out_dir)
+    mesh = pmesh.make_mesh(["cuda"] * MP_OWNED_SHARDS)
+    path = os.path.join(out_dir, "checkpoint.npz")
+    saved = {}
+
+    def save_once(engine, prio):
+        if "prio" in saved or prio % 10 != 9 or not engine._count_global(
+                int(engine.stats["cells_processed"])):
+            return
+        t = time.time()
+        ckpt.save_checkpoint(engine, path)
+        saved.update(prio=prio, save_s=time.time() - t,
+                     state=alive_state(engine),
+                     depth=engine.pack.depth.clone(),
+                     alive=engine.n_alive())
+
+    torch.cuda.synchronize()
+    wire0 = dict(pmesh.WIRE)
+    kernels.reset_counts()
+    t = time.time()
+    eng = pipeline.run(ps.model, opt, images=ps.images, mesh=mesh,
+                       spatial=True, image_subsets=True,
+                       snapshot_hook=save_once)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches, twins = launch_counts()
+    wire = pmesh.WIRE["bytes"] - wire0["bytes"]
+    c = eng.alive_arrays()[0]
+    res = dict(rank=rank, engine=type(eng).__name__, shards=mesh.size,
+               wall_s=wall, loop_s=float(eng.stats["proc_time"]),
+               alive=eng.n_alive(), finished=not eng.have_work(),
+               frac_within_002=float((np.abs(c[:, 2] - ps.plane_z)
+                                      < 0.02).mean()),
+               wire_bytes=wire, launches=launches, twin_calls=twins,
+               **mp_owned_state(eng, rank))
+    res["slab_fetch"] = slab_fetch(eng, opt)
+    # the per-process checkpoint: load into a fresh owned engine
+    check("prio" in saved, "plane_mp_owned: no checkpoint was written")
+    t = time.time()
+    fresh = OwnedSpatialEngine(ps.model, opt, images=ps.images, mesh=mesh,
+                               image_subsets=True)
+    ckpt.load_checkpoint(fresh, path, device=fresh.device)
+    load_s = time.time() - t
+    st_f, st_s = alive_state(fresh), saved["state"]
+    state_equal = (all(np.array_equal(st_f[0][k], st_s[0][k])
+                       for k in st_s[0]) and st_f[1:] == st_s[1:]
+                   and torch.equal(fresh.pack.depth, saved["depth"]))
+    del fresh
+    opt_r = dataclasses.replace(opt, OUTFOLDER=out_dir + "_resumed")
+    resumed = pipeline.run(ps.model, opt_r, images=ps.images, mesh=mesh,
+                           spatial=True, image_subsets=True, resume=path)
+    res["checkpoint"] = dict(
+        prio=saved["prio"], alive_at_save=saved["alive"],
+        save_s=saved["save_s"], load_s=load_s,
+        file_bytes=os.path.getsize(f"{path}.proc{rank}of{MP_PROCESSES}.npz"),
+        state_equal=bool(state_equal), resumed_alive=resumed.n_alive(),
+        resumed_finished=not resumed.have_work())
+    del resumed
+    res["dense_ba"] = mp_dense_ba(eng)
+    return res
+
+
+def plane_mp_owned_phase(spatial_alive):
+    """The owned engine with image subsets on plane_spatial's plane: alive
+    within 10% of the JAX owned engine's (PLANE_OWNED_JAX_CPU_ALIVE),
+    plane_spatial's count and the ratio beside it."""
+    budget = budget_left(PLANE_MP_OWNED_BUDGET_S)
+    check(budget > 30.0, f"plane_mp_owned: only {budget:.0f} s left")
+    res = mp_run("plane_mp_owned", budget)
+    launches, twins = mp_sum(res, "launches"), mp_sum(res, "twin_calls")
+    r0 = res[0]
+    emit("plane_mp_owned", processes=MP_PROCESSES,
+         shards_per_process=MP_OWNED_SHARDS, shards=r0["shards"],
+         alive=r0["alive"], jax_cpu_owned_alive=PLANE_OWNED_JAX_CPU_ALIVE,
+         plane_spatial_alive=spatial_alive,
+         over_plane_spatial=r0["alive"] / max(spatial_alive, 1),
+         finished=r0["finished"], shares=r0["shares"],
+         frac_within_002=r0["frac_within_002"],
+         loop_s=[r["loop_s"] for r in res], wall_s=[r["wall_s"] for r in res],
+         migrated_sum=r0["migrated_sum"], arrivals_sum=r0["arrivals_sum"],
+         host_collectives=[r["host_collectives"] for r in res],
+         halo_bytes_xproc=[r["halo_bytes_xproc"] for r in res],
+         wire_bytes=[r["wire_bytes"] for r in res],
+         cams_per_shard=[r["cams_per_shard"] for r in res],
+         slab_fetch=[r["slab_fetch"] for r in res],
+         checkpoint=[r["checkpoint"] for r in res],
+         dense_ba=[r["dense_ba"] for r in res],
+         launches=launches, twin_calls=twins)
+    check_path("plane_mp_owned", "default", launches, twins)
+    check(all(r["engine"] == "OwnedSpatialEngine" for r in res),
+          "plane_mp_owned: not the owned engine")
+    check(r0["finished"], "plane_mp_owned: the run did not finish")
+    check(abs(r0["alive"] - PLANE_OWNED_JAX_CPU_ALIVE)
+          <= 0.1 * PLANE_OWNED_JAX_CPU_ALIVE,
+          f"plane_mp_owned: {r0['alive']} alive vs the JAX owned "
+          f"engine's {PLANE_OWNED_JAX_CPU_ALIVE}")
+    check(min(r0["shares"]) > MP_SHARE_FLOOR,
+          f"plane_mp_owned: shares {r0['shares']}")
+    check(r0["migrated_sum"] == r0["arrivals_sum"] > 0,
+          f"plane_mp_owned: {r0['arrivals_sum']} arrivals of "
+          f"{r0['migrated_sum']} migrated")
+    check(r0["frac_within_002"] >= 0.95,
+          f"plane_mp_owned: {r0['frac_within_002']} within 0.02")
+    for r in res:
+        k = r["checkpoint"]
+        b = r["dense_ba"]
+        check(r["owned_invariant"], f"plane_mp_owned: rank {r['rank']} "
+                                    "holds a foreign patch")
+        check(r["slab_miss"] == 0, f"plane_mp_owned: slab_miss "
+                                   f"{r['slab_miss']}")
+        check(r["slab_fetch"]["equal_twin"] and r["slab_fetch"]["equal_full"],
+              f"plane_mp_owned: the fetch kernel on a slab: "
+              f"{r['slab_fetch']}")
+        check(k["state_equal"], "plane_mp_owned: the loaded checkpoint "
+                                "differs from the saved state")
+        check(k["resumed_finished"] and abs(k["resumed_alive"] - r["alive"])
+              <= 0.1 * r["alive"],
+              f"plane_mp_owned: resumed {k['resumed_alive']} vs "
+              f"{r['alive']}")
+        check(b["rms"][1] < b["rms"][0] / 3.0,
+              f"plane_mp_owned: dense BA RMS {b['rms']}")
+        check(b["cam_err_median"][1] < b["cam_err_median"][0] / 2.0,
+              f"plane_mp_owned: camera error {b['cam_err_median']}")
+        check(b["cams_same_across"], "plane_mp_owned: the BA's cameras "
+                                     "differ across processes")
+    return launches
+
+
+def ring_mp_owned_worker(rank, budget):
+    """make_ring_plane_scene() with RING_OPT on the owned engine with image
+    subsets over MP_PROCESSES x MP_OWNED_SHARDS shards, under a wall
+    budget that the processes agree on."""
+    import numpy as np
+    import torch
+    from hpmvs_tpu_torch import kernels
+    from hpmvs_tpu_torch.config import Options
+    from hpmvs_tpu_torch.parallel import mesh as pmesh
+    from hpmvs_tpu_torch.runtime.owned import OwnedSpatialEngine
+    from hpmvs_tpu_torch.testing import make_ring_plane_scene
+    budget = float(budget)
+    sc = make_ring_plane_scene()
+    opt = dataclasses.replace(Options(), **RING_OPT)
+    mesh = pmesh.make_mesh(["cuda"] * MP_OWNED_SHARDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wire0 = dict(pmesh.WIRE)
+    kernels.reset_counts()
+    waves = [0]
+
+    def count(engine):
+        waves[0] += 1
+
+    t = time.time()
+    eng = OwnedSpatialEngine(sc.model, opt, images=sc.images, mesh=mesh,
+                             image_subsets=True)
+    eng.wave_hook = count
+    eng.seed()
+    prio = 0
+    for prio in range(opt.max_prio):
+        eng.process_priority_step(prio)
+        # the stop is agreed: every process leaves the loop together
+        if not eng.have_work() or eng._count_global(
+                int(time.time() - t > budget)):
+            break
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches, twins = launch_counts()
+    wire = dict(calls=pmesh.WIRE["calls"] - wire0["calls"],
+                bytes=pmesh.WIRE["bytes"] - wire0["bytes"])
+    c = eng.alive_arrays()[0]
+    d = np.abs(c[:, 2] - sc.plane_z)
+    st = eng.stats
+    return dict(rank=rank, wall_s=wall, budget_s=budget,
+                finished=not eng.have_work(), loop_stopped_at_prio=prio,
+                alive=eng.n_alive(),
+                frac_within_002=float((d < 0.02).mean()),
+                frac_within_4gsd=float((d < 4 * RING_GSD).mean()),
+                waves=waves[0], dispatches=int(st["dispatches"]),
+                patches_optimized=int(st["patches_optimized"]),
+                wire_calls=wire["calls"], wire_bytes=wire["bytes"],
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                launches=launches, twin_calls=twins,
+                **mp_owned_state(eng, rank))
+
+
+def ring_mp_owned_phase(ring_alive, ring_frac, ring_frac_4gsd):
+    """The 150-camera ring on the owned engine with slabs, held to the JAX
+    owned engine at one process as ring_spatial_subsets is held to the
+    JAX spatial engine (its shares at most 0.02 below, alive within 10%
+    when the run completes); ring_spatial_subsets' numbers beside."""
+    budget = budget_left(RING_MP_BUDGET_S) - MP_START_S
+    check(budget > 30.0, f"ring_mp_owned: only {budget:.0f} s left")
+    res = mp_run("ring_mp_owned", budget, budget)
+    launches, twins = mp_sum(res, "launches"), mp_sum(res, "twin_calls")
+    r0 = res[0]
+    emit("ring_mp_owned", processes=MP_PROCESSES,
+         shards_per_process=MP_OWNED_SHARDS, budget_s=budget,
+         finished=r0["finished"], loop_stopped_at_prio=r0[
+             "loop_stopped_at_prio"],
+         alive=r0["alive"], jax_cpu_owned_alive=RING_OWNED_JAX_CPU_ALIVE,
+         ring_spatial_subsets_alive=ring_alive,
+         frac_within_002=r0["frac_within_002"],
+         frac_within_4gsd=r0["frac_within_4gsd"],
+         jax_cpu_owned_within=[RING_OWNED_JAX_CPU_WITHIN_002,
+                               RING_OWNED_JAX_CPU_WITHIN_4GSD],
+         ring_spatial_subsets_within=[ring_frac, ring_frac_4gsd],
+         shares=r0["shares"], wall_s=[r["wall_s"] for r in res],
+         waves=r0["waves"],
+         host_collectives=[r["host_collectives"] for r in res],
+         host_collectives_per_wave=[r["host_collectives"]
+                                    / max(r["waves"], 1) for r in res],
+         wire_bytes=[r["wire_bytes"] for r in res],
+         halo_bytes_xproc=[r["halo_bytes_xproc"] for r in res],
+         migrated_sum=r0["migrated_sum"], arrivals_sum=r0["arrivals_sum"],
+         pend_gathered_rows=[r["pend_gathered_rows"] for r in res],
+         subset_rebuilds=[r["subset_rebuilds"] for r in res],
+         cams_per_shard=[r["cams_per_shard"] for r in res],
+         patches_optimized=[r["patches_optimized"] for r in res],
+         max_memory_allocated=[r["max_memory_allocated"] for r in res],
+         launches=launches, twin_calls=twins)
+    check_path("ring_mp_owned", "default", launches, twins)
+    check(r0["migrated_sum"] == r0["arrivals_sum"],
+          f"ring_mp_owned: {r0['arrivals_sum']} arrivals of "
+          f"{r0['migrated_sum']} migrated")
+    for r in res:
+        check(r["owned_invariant"] and r["slab_miss"] == 0,
+              f"ring_mp_owned: rank {r['rank']}: invariant "
+              f"{r['owned_invariant']}, slab_miss {r['slab_miss']}")
+    check(r0["frac_within_002"] >= RING_OWNED_JAX_CPU_WITHIN_002 - 0.02
+          and r0["frac_within_4gsd"] >= RING_OWNED_JAX_CPU_WITHIN_4GSD
+          - 0.02, f"ring_mp_owned: {r0['frac_within_002']} / "
+                  f"{r0['frac_within_4gsd']} against the JAX owned "
+                  f"engine's {RING_OWNED_JAX_CPU_WITHIN_002} / "
+                  f"{RING_OWNED_JAX_CPU_WITHIN_4GSD}")
+    if r0["finished"]:
+        check(abs(r0["alive"] - RING_OWNED_JAX_CPU_ALIVE)
+              <= 0.1 * RING_OWNED_JAX_CPU_ALIVE,
+              f"ring_mp_owned: {r0['alive']} alive vs the JAX owned "
+              f"engine's {RING_OWNED_JAX_CPU_ALIVE}")
+    return launches
+
+
 def ring_profile_phase(device):
     """The ring plane once unprofiled, then once under torch.profiler with
     device activity only: patches/s, device busy time, idle share of the
@@ -1537,6 +2105,24 @@ def facade_waves_phase(device):
                  FACADE_BUDGET_S)
 
 
+def multi_device_phases(device, stream=True):
+    """The single-process multi-device phases, then the multi-process ones
+    (two processes on the card) held to them; {phase: launches}."""
+    out = {}
+    out["plane_mesh"], mesh_alive, mesh_loop = plane_mesh_phase(device)
+    out["plane_spatial"], spatial_alive = plane_spatial_phase(device)
+    (out["ring_spatial_subsets"], ring_alive, ring_frac,
+     ring_frac_4gsd) = ring_spatial_subsets_phase(device)
+    if stream:
+        out["plane_stream_spatial"] = plane_stream_spatial_phase(
+            device, spatial_alive)
+    out["plane_mp_mesh"] = plane_mp_mesh_phase(mesh_alive, mesh_loop)
+    out["plane_mp_owned"] = plane_mp_owned_phase(spatial_alive)
+    out["ring_mp_owned"] = ring_mp_owned_phase(ring_alive, ring_frac,
+                                               ring_frac_4gsd)
+    return out
+
+
 def main():
     kind, smi = device_phase()
     import torch
@@ -1564,19 +2150,15 @@ def main():
     del eng
     facade_ba_sharded_phase(device, solved)
     del solved
-    facade_phase(device, sc, "facade_exactref_fd", "exactref_fd", 9,
+    facade_phase(device, sc, "facade_exactref_fd", "exactref_fd",
+                 FACADE_EXACTREF_FD_MAX_TREE_LEVEL,
                  FACADE_EXACTREF_FD_BUDGET_S)
     facade_stream_phase(device, sc)
     del sc
     ring_plane_phase(device)
-    # the single-process multi-device paths, several shards on the card
-    mesh_launches = {"plane_mesh": plane_mesh_phase(device)}
-    mesh_launches["plane_spatial"], spatial_alive = plane_spatial_phase(
-        device)
-    mesh_launches["ring_spatial_subsets"] = ring_spatial_subsets_phase(
-        device)
-    mesh_launches["plane_stream_spatial"] = plane_stream_spatial_phase(
-        device, spatial_alive)
+    # the single-process multi-device paths, several shards on the card,
+    # then the multi-process paths held to them
+    mesh_launches = multi_device_phases(device)
     emit("smoke", elapsed_s=time.time() - T0, time_limit_s=TIME_LIMIT_S)
     # each kernel's launches on the first plane path that runs it, and
     # beside them its launches on each multi-device path
@@ -1611,7 +2193,15 @@ if __name__ == "__main__":
     except ImportError as e:
         raise SystemExit(f"chip_smoke: FAILED: run from the repository "
                          f"root: {e}")
-    if sys.argv[1:] == ["--profile"]:
+    if sys.argv[1:2] == ["--mp-worker"]:
+        mp_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:])
+    elif sys.argv[1:] == ["--mp"]:
+        device_phase()
+        build_phase()
+        plane_mesh_phase("cuda")
+        multi_device_phases("cuda", stream=False)
+        emit("smoke_mp", elapsed_s=time.time() - T0)
+    elif sys.argv[1:] == ["--profile"]:
         device_phase()
         build_phase()
         profile_phase("cuda")

@@ -11,8 +11,13 @@ torch.profiler trace), --start_level, --max_views, --covis_min_points,
 With more than one visible GPU the run shards over all of them
 (pipeline.run's mesh="auto"); --spatial then partitions the octree into
 Morton blocks over that mesh, and fails as the JAX CLI does on one device.
-A multi-process launch waits for the multi-process port. The JAX package's
---platform is refused in favour of --device.
+A multi-process launch needs no flag, as in the JAX CLI: under torchrun
+every process runs the CLI, and pipeline.run brings up the process group
+and spans the mesh over all of them (--spatial then runs the owned engine;
+process 0 writes the PLY files), e.g. in one command:
+  torchrun --nproc_per_node=2 -m hpmvs_tpu_torch.cli --spatial
+      --nvm=scene.nvm --outdir=/tmp/out
+The JAX package's --platform is refused in favour of --device.
 
 Usage: python -m hpmvs_tpu_torch.cli --nvm=scene.nvm --outdir=/tmp/out
 """

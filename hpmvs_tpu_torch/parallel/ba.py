@@ -34,8 +34,12 @@ every per-camera and per-point accumulation over the shards' partial sums
 (mesh.psum) and runs the CG with a summed matvec, as the JAX package's
 shard_map does. ba_solve is the same solve over a one-shard mesh, so one
 body serves both. apply_dense_ba takes the mesh branch for an engine with
-a mesh. The owned multi-process branches wait for the multi-process port and
-raise NotImplementedError.
+a mesh. Over a mesh that spans processes each process holds its own
+shards' measurements and mesh.psum sums across the processes in process
+order, so every process ends with the same bits: the cameras and points of
+an owned engine's dense BA are bit-identical on every process, although a
+CUDA index_add_ is not deterministic (each partial sum is computed once, by
+its shard's process, and the reduction order is fixed).
 """
 
 from __future__ import annotations
@@ -226,8 +230,8 @@ def ba_solve(prob: BAProblem, n_cams: int, n_pts: int, iters: int = 5,
 
     Returns device tensors (cam_params (C,6), points (Pn,3),
     rms_history (iters+1,))."""
-    dev = resolve_device(device)
-    return _solve(pmesh.make_mesh([dev]), prob.to(dev), n_cams, n_pts,
+    dev = pmesh._resolve(device)
+    return _solve(pmesh.Mesh([dev], (1, 1)), prob.to(dev), n_cams, n_pts,
                   iters, cg_iters, damping, fix_count, final_rms=True)
 
 
@@ -242,10 +246,12 @@ def ba_solve_sharded(mesh, prob: BAProblem, n_cams: int, n_pts: int,
 
     The measurement table must be padded so that M divides the mesh size
     and no point's measurements straddle a shard boundary (pad rows with
-    m_w = 0): use shard_problem(). Returns shard 0's replicas (cam_params
-    (C,6), points (Pn,3), rms_history (iters,): the RMS before each step,
-    without ba_solve's final entry, as the JAX package's sharded solve) on
-    its device."""
+    m_w = 0): use shard_problem(). Returns this process's first shard's
+    replicas (cam_params (C,6), points (Pn,3), rms_history (iters,): the
+    RMS before each step, without ba_solve's final entry, as the JAX
+    package's sharded solve) on its device. Over a mesh that spans
+    processes, every process calls it with the same problem and computes
+    its own shards' rows."""
     return _solve(mesh, prob, n_cams, n_pts, iters, cg_iters, damping,
                   fix_count, final_rms=False)
 
@@ -263,8 +269,11 @@ def _solve(mesh, prob: BAProblem, n_cams: int, n_pts: int, iters: int,
     per = M // n
     tabs = pmesh.replicate_tables(mesh, (prob.cam_K, prob.cam_R0,
                                          prob.cam_t0, prob.pts0))
+    # this process's shards (every shard of a single-process mesh)
+    loc = [int(i) for i in mesh.local_ids]
     sh = []
-    for i, dev in enumerate(mesh.devices):
+    for i in loc:
+        dev = mesh.devices[i]
         rows = slice(i * per, (i + 1) * per)
         K, R0, t0, _ = tabs[i]
         cc = prob.m_cam[rows].to(dev).long()
@@ -281,8 +290,10 @@ def _solve(mesh, prob: BAProblem, n_cams: int, n_pts: int, iters: int,
         return _segsum(vals, x["cc_spread"], n_cams * CAM_SPREAD).view(
             (n_cams, CAM_SPREAD) + vals.shape[1:]).sum(1)
 
-    psum = pmesh.psum
-    devs = mesh.devices
+    def psum(parts):
+        return pmesh.psum(parts, mesh)
+
+    devs = [mesh.devices[i] for i in loc]
     eye3 = [torch.eye(3, dtype=torch.float32, device=d) for d in devs]
     # gauge fix: freeze the first fix_count cameras. ONE camera pins 6 DoF
     # but leaves the global-scale gauge free (reprojection-only BA); TWO
@@ -309,7 +320,7 @@ def _solve(mesh, prob: BAProblem, n_cams: int, n_pts: int, iters: int,
 
     cam = [torch.zeros((n_cams, 6), dtype=torch.float32, device=d)
            for d in devs]
-    pts = [t[3] for t in tabs]
+    pts = [tabs[i][3] for i in loc]
     lam = [torch.full((), damping, dtype=torch.float32, device=d)
            for d in devs]
     hist = []
@@ -535,11 +546,15 @@ def periodic_dense_ba(engine, obs: DenseObsStore, iters: int = 6,
                       cg_iters: int = 40, device="cuda"):
     """One ba_dense_every pass: stamp observations for patches created
     since the last pass, then re-solve cameras+patches against ALL stamped
-    observations on `device` and fold the result back (apply_dense_ba)."""
+    observations on `device` and fold the result back (apply_dense_ba).
+
+    Owned multi-process engines take the consistency-solve path (the
+    problem built from the globally gathered current state), as the JAX
+    package does: per-process stamp stores would need gather-order
+    bookkeeping."""
     if hasattr(engine, "n_alive_local"):
-        raise NotImplementedError(
-            "periodic dense BA of the owned multi-process engine waits for "
-            "the multi-process port")
+        return apply_dense_ba(engine, iters=iters, cg_iters=cg_iters,
+                              device=device)
     p = engine.patches
     pids = np.nonzero(p.alive[:p.n])[0]
     if len(pids) < 16:
@@ -603,25 +618,33 @@ def apply_dense_ba(engine, iters: int = 8, cg_iters: int = 40,
 
     Sharding: with engine.mesh, the measurement table shards by patch over
     the mesh (shard_problem) and every reduction is a sum over the shards
-    (ba_solve_sharded); `device` is then unused. The owned multi-process
-    engine's branch waits for the multi-process port."""
+    (ba_solve_sharded); `device` is then unused.
+
+    Owned multi-process engines (hpmvs_tpu/parallel/ba.py:537-552): every
+    process gathers the GLOBAL cloud (the engine's alive_arrays, in
+    process order), solves the same problem over the process-spanning mesh
+    -- bit-identical on every process -- and folds back its own segment;
+    the z-buffer replay gathers every process's adds. Every process calls
+    it together, with the same `problem`."""
     from hpmvs_tpu_torch.core import depth as depth_mod
-    if hasattr(engine, "n_alive_local"):
-        raise NotImplementedError(
-            "dense BA of the owned multi-process engine waits for the "
-            "multi-process port")
+    owned = hasattr(engine, "n_alive_local")
     mesh = getattr(engine, "mesh", None)
     dev = engine.device if mesh is not None else resolve_device(device)
     # outstanding speculation captured pre-BA cameras and centers
     engine.drop_speculation()
     p = engine.patches
     pids = np.nonzero(p.alive[:p.n])[0]
-    if len(pids) == 0:
+    if owned:
+        centers, _, _, _, views, _ = engine.alive_arrays()
+        my_off = int(engine._gather(np.int64(len(pids)))[:engine.pid].sum())
+    else:
+        centers, views = p.center[pids], p.views[pids]
+    if len(centers) == 0:
         return None
     if problem is None:
-        problem = build_dense_problem(engine.model, p.center[pids],
-                                      p.views[pids], device=dev)
-    n_cams, n_pts = len(engine.model.cameras), len(pids)
+        problem = build_dense_problem(engine.model, centers, views,
+                                      device=dev)
+    n_cams, n_pts = len(engine.model.cameras), len(centers)
     if mesh is not None:
         cam, pts, hist = ba_solve_sharded(
             mesh, shard_problem(problem, mesh.size), n_cams, n_pts,
@@ -636,7 +659,7 @@ def apply_dense_ba(engine, iters: int = 8, cg_iters: int = 40,
     # fold back: cameras -> model + device SoA, centers -> patch store,
     # depth z-buffer replayed under the new geometry
     engine.set_cameras(apply_cameras_to_model(engine.model, cam))
-    p.center[pids] = pts
+    p.center[pids] = pts[my_off:my_off + len(pids)] if owned else pts
     engine._pend = []
     fresh = depth_mod.build_depth_pack(engine.scene.width_np,
                                        engine.scene.height_np,

@@ -30,14 +30,27 @@ tensors, each on its shard's device.
 Collectives are explicit tensor operations: `pmin` (a min across the
 replicas, written back to each), `psum` (a sum), `ppermute` (shard s's
 buffer to shard (s+k) mod n by .to(device)) and `all_to_all` (the
-(destination, slot) exchange of `make_halo_exchange`). One process drives
-every shard: the multi-controller bring-up of the JAX package
-(init_distributed, on torch.distributed here) is not ported yet.
+(destination, slot) exchange of `make_halo_exchange`).
+
+Several processes (the JAX package's multi-controller bring-up):
+`init_distributed` opens one torch.distributed process group (gloo) and
+`make_mesh` then builds a mesh whose shards span the processes: process 0's
+shards first, then process 1's (the order of jax.devices()). A shard of
+another process holds no tensor here: its entry in `Mesh.devices`, in every
+per-shard list and in every collective's output is None. Every collective
+reduces over the local shards first, then across the processes through a
+host allgather in process order, so its result is bit-identical on every
+process. The group runs on CPU tensors, staged from and to the devices
+explicitly: gloo runs only broadcast and all_reduce on CUDA tensors, and
+NCCL cannot put two ranks on one GPU (the two-process runs on one card).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import os
+import pickle
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,13 +64,131 @@ from hpmvs_tpu_torch.ops import optimizer as popt
 AXES = ("dp", "sp")
 
 
+# ----------------------------------------------------------------------
+# processes (torch.distributed, one gloo group)
+# ----------------------------------------------------------------------
+# a collective that one process never joins fails after this long instead
+# of hanging the run
+DIST_TIMEOUT_S = 300.0
+_LAUNCH_VARS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+# host collectives of this process: calls and the bytes received from the
+# other processes
+WIRE = {"calls": 0, "bytes": 0}
+
+
+def init_distributed(address: Optional[str] = None,
+                     world_size: Optional[int] = None,
+                     rank: Optional[int] = None,
+                     timeout_s: float = DIST_TIMEOUT_S) -> int:
+    """Multi-process bring-up (hpmvs_tpu/parallel/mesh.py:39-80 on
+    torch.distributed): one gloo process group. Returns the number of
+    processes.
+
+    address ("tcp://host:port" or "host:port"), world_size and rank given
+    explicitly, or taken from a torchrun launch's MASTER_ADDR, MASTER_PORT,
+    RANK and WORLD_SIZE. Without either it does nothing and returns 1; an
+    initialised group is kept. When explicit arguments or a launcher's
+    variables are present and the initialisation fails, it raises: carrying
+    on single-process would run the whole reconstruction once per process,
+    each writing its own conflicting output. timeout_s bounds every
+    collective of the group."""
+    dist = torch.distributed
+    if dist.is_initialized():
+        return dist.get_world_size()
+    explicit = (address, world_size, rank) != (None, None, None)
+    env = [k for k in _LAUNCH_VARS if os.environ.get(k)]
+    if not explicit and not env:
+        return 1
+    if explicit:
+        if None in (address, world_size, rank):
+            raise ValueError("init_distributed: give address, world_size "
+                             "and rank together")
+        init = address if "://" in address else f"tcp://{address}"
+        kw = dict(init_method=init, world_size=int(world_size),
+                  rank=int(rank))
+    else:
+        missing = [k for k in _LAUNCH_VARS if k not in env]
+        if missing:
+            raise ValueError(f"init_distributed: a launch sets {env} but "
+                             f"not {missing}")
+        kw = dict(init_method="env://")
+    dist.init_process_group(
+        "gloo", timeout=datetime.timedelta(seconds=float(timeout_s)), **kw)
+    return dist.get_world_size()
+
+
+def process_index() -> int:
+    """This process's rank (0 without a process group)."""
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The number of processes (1 without a process group)."""
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _gather_bytes(buf: np.ndarray) -> list:
+    """Host allgather of a uint8 buffer of any length: every process's
+    buffer, in process order. CPU tensors (gloo)."""
+    dist = torch.distributed
+    P = process_count()
+    buf = np.ascontiguousarray(buf, np.uint8).reshape(-1)
+    n = torch.tensor([buf.size], dtype=torch.int64)
+    ns = [torch.zeros(1, dtype=torch.int64) for _ in range(P)]
+    dist.all_gather(ns, n)
+    ns = [int(x) for x in ns]
+    t = torch.zeros(max(max(ns), 1), dtype=torch.uint8)
+    t[:buf.size] = torch.from_numpy(buf.copy())
+    outs = [torch.empty_like(t) for _ in range(P)]
+    dist.all_gather(outs, t)
+    WIRE["calls"] += 1
+    WIRE["bytes"] += sum(ns) - buf.size
+    return [o[:k].numpy() for o, k in zip(outs, ns)]
+
+
+def allgather(x) -> np.ndarray:
+    """Host allgather (hpmvs_tpu/runtime/owned.py::_allgather): a
+    (P,) + x.shape array ordered by process id, identical on every
+    process. Ragged leading dimensions are padded with zeros to the
+    longest, as the JAX engine pads them (a caller that must tell padding
+    from rows marks its rows: runtime/owned.py::_gather_pend)."""
+    x = np.asarray(x)
+    if process_count() == 1:
+        return x[None].copy()
+    scalar = x.ndim == 0
+    x1 = np.ascontiguousarray(x.reshape(1) if scalar else x)
+    rows = [b.view(x.dtype).reshape((-1,) + x1.shape[1:])
+            for b in _gather_bytes(x1.view(np.uint8))]
+    m = max(len(r) for r in rows)
+    out = np.zeros((len(rows), m) + x1.shape[1:], x.dtype)
+    for p, r in enumerate(rows):
+        out[p, :len(r)] = r
+    return out[:, 0] if scalar else out
+
+
+def allgather_object(obj) -> list:
+    """Every process's picklable host object, in process order (the
+    cross-process rows of ppermute / all_to_all / unshard, the engines'
+    per-shard dispatch outputs)."""
+    if process_count() == 1:
+        return [obj]
+    got = _gather_bytes(np.frombuffer(pickle.dumps(obj, protocol=5),
+                                      np.uint8))
+    return [pickle.loads(b.tobytes()) for b in got]
+
+
 class Mesh:
     """An ordered list of shard devices with a ('dp', 'sp') shape; shard i
     is devices[i], the row-major flattening of the shape (the order of
-    JAX's P(('dp', 'sp')) sharding)."""
+    JAX's P(('dp', 'sp')) sharding).
 
-    def __init__(self, devices: Sequence[torch.device],
-                 shape: Tuple[int, int]):
+    shard_proc: the process of each shard (default: all this process's);
+    devices[i] is None for a shard of another process."""
+
+    def __init__(self, devices: Sequence[Optional[torch.device]],
+                 shape: Tuple[int, int], shard_proc=None):
         shape = tuple(int(x) for x in shape)
         if len(shape) != 2 or shape[0] * shape[1] != len(devices):
             raise ValueError(f"mesh shape {shape} does not hold "
@@ -65,19 +196,43 @@ class Mesh:
         self.devices = tuple(devices)
         self.shape = shape
         self.axis_names = AXES
+        self.pid = process_index()
+        self.shard_proc = (np.full(len(devices), self.pid, np.int64)
+                           if shard_proc is None
+                           else np.asarray(shard_proc, np.int64))
+        if [d is not None for d in self.devices] != \
+                list(self.shard_proc == self.pid):
+            raise ValueError("a mesh holds a device for exactly its local "
+                             "shards")
+        self.n_proc = len(np.unique(self.shard_proc))
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
     @property
+    def local(self) -> np.ndarray:
+        """(size,) bool: the shards of this process."""
+        return self.shard_proc == self.pid
+
+    @property
+    def local_ids(self) -> np.ndarray:
+        return np.nonzero(self.local)[0]
+
+    @property
+    def first(self) -> torch.device:
+        """The device of this process's first shard."""
+        return self.devices[int(self.local_ids[0])]
+
+    @property
     def distinct(self) -> Tuple[torch.device, ...]:
-        """The mesh's devices, each once, in shard order."""
-        return tuple(dict.fromkeys(self.devices))
+        """This process's devices, each once, in shard order."""
+        return tuple(dict.fromkeys(d for d in self.devices if d is not None))
 
     def __repr__(self):
         return f"Mesh({dict(zip(self.axis_names, self.shape))}, " \
-               f"{[str(d) for d in self.devices]})"
+               f"{[str(d) for d in self.devices]}, " \
+               f"processes={self.shard_proc.tolist()})"
 
 
 def _resolve(dev) -> torch.device:
@@ -92,12 +247,15 @@ def _resolve(dev) -> torch.device:
 def make_mesh(devices=None, shape: Optional[Tuple[int, int]] = None) -> Mesh:
     """Build a ('dp', 'sp') mesh.
 
-    devices: a sequence of device specs (repeats allowed: ["cuda"] * 4 puts
-    four shards on one GPU, ["cpu"] * 8 eight on the CPU), an int n for
-    cuda:0..n-1, or None for every visible GPU. A CUDA device without a GPU
-    raises (no shard runs quietly on the CPU). shape: as JAX make_mesh
-    (mesh.py:83-97), default (n // sp, sp) with sp the first of 4, 2, 1
-    dividing n."""
+    devices: this process's shards as a sequence of device specs (repeats
+    allowed: ["cuda"] * 4 puts four shards on one GPU, ["cpu"] * 8 eight
+    on the CPU), an int n for cuda:0..n-1, or None for every visible GPU.
+    A CUDA device without a GPU raises (no shard runs quietly on the CPU).
+    Under a process group (init_distributed) every process calls it with
+    its own shards and the mesh spans them all, process 0's first (a
+    collective: every process must call it). shape: as JAX make_mesh
+    (mesh.py:83-97) over the global shard count, default (n // sp, sp) with
+    sp the first of 4, 2, 1 dividing n."""
     if devices is None:
         resolve_device("cuda")
         devices = torch.cuda.device_count()
@@ -110,9 +268,18 @@ def make_mesh(devices=None, shape: Optional[Tuple[int, int]] = None) -> Mesh:
                              f"{torch.cuda.device_count()} visible")
         devices = [f"cuda:{i}" for i in range(n)]
     devs = [_resolve(d) for d in devices]
-    n = len(devs)
-    if n == 0:
-        raise ValueError("make_mesh: no devices")
+    counts = allgather(np.int64(len(devs)))
+    if counts.min() == 0:
+        # as hpmvs_tpu/runtime/owned.py:70-71: a process without a shard
+        # of the mesh cannot own blocks nor join its dispatches
+        raise ValueError(f"make_mesh: a process holds no shard "
+                         f"(shards per process {counts.tolist()})")
+    pid = process_index()
+    shard_proc = np.repeat(np.arange(len(counts)), counts)
+    glob = [None] * int(counts.sum())
+    off = int(counts[:pid].sum())
+    glob[off:off + len(devs)] = devs
+    n = len(glob)
     if shape is None:
         sp = 1
         for cand in (4, 2, 1):
@@ -120,7 +287,7 @@ def make_mesh(devices=None, shape: Optional[Tuple[int, int]] = None) -> Mesh:
                 sp = cand
                 break
         shape = (n // sp, sp)
-    return Mesh(devs, shape)
+    return Mesh(glob, shape, shard_proc=shard_proc)
 
 
 # ----------------------------------------------------------------------
@@ -144,31 +311,51 @@ def to_device(obj, device: torch.device):
 
 def replicate_tables(mesh: Mesh, obj) -> list:
     """Read-only `obj` per shard: one copy per distinct device, shared by
-    the shards on it (the copy on obj's own device is obj's tensors)."""
+    the shards on it (the copy on obj's own device is obj's tensors); None
+    for the shards of other processes."""
     per = {}
     for d in mesh.distinct:
         per[d] = to_device(obj, d)
-    return [per[d] for d in mesh.devices]
+    return [None if d is None else per[d] for d in mesh.devices]
 
 
 def replicate(mesh: Mesh, t: torch.Tensor) -> list:
-    """Mutable per-shard replicas of `t`: every shard its own copy."""
-    return [t.to(d, copy=True) for d in mesh.devices]
+    """Mutable per-shard replicas of `t`: every local shard its own copy."""
+    return [None if d is None else t.to(d, copy=True) for d in mesh.devices]
 
 
 def shard_batch(mesh: Mesh, a) -> list:
     """A batch (leading dim a multiple of the mesh size: pad_to_multiple)
-    as per-shard tensors, shard i holding the i-th contiguous segment."""
+    as per-shard tensors, shard i holding the i-th contiguous segment
+    (None for the shards of other processes)."""
     t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
     if t.shape[0] % mesh.size:
         raise ValueError(f"batch of {t.shape[0]} does not split over "
                          f"{mesh.size} shards")
-    return [p.to(d) for p, d in zip(torch.chunk(t, mesh.size), mesh.devices)]
+    return [None if d is None else p.to(d)
+            for p, d in zip(torch.chunk(t, mesh.size), mesh.devices)]
 
 
-def unshard(parts) -> np.ndarray:
-    """Per-shard tensors -> one host array (shard order)."""
-    return np.concatenate([p.cpu().numpy() for p in parts])
+def unshard(parts, mesh: Optional[Mesh] = None) -> np.ndarray:
+    """Per-shard tensors -> one host array (shard order). Over a mesh that
+    spans processes the other processes' shards are gathered (every
+    process calls it)."""
+    host = [None if p is None else p.cpu().numpy() for p in parts]
+    if mesh is not None and mesh.n_proc > 1:
+        host = _merge_shards(mesh, host)
+    return np.concatenate(host)
+
+
+def _merge_shards(mesh: Mesh, host: list) -> list:
+    """A per-shard list of host values, this process's shards filled in,
+    completed with the other processes' shards (one allgather)."""
+    mine = {int(i): host[i] for i in mesh.local_ids}
+    out = list(host)
+    for p, got in enumerate(allgather_object(mine)):
+        if p != mesh.pid:
+            for i, v in got.items():
+                out[i] = v
+    return out
 
 
 def pad_to_multiple(arrs, batch: int, mult: int, fills):
@@ -186,42 +373,105 @@ def pad_to_multiple(arrs, batch: int, mult: int, fills):
 # ----------------------------------------------------------------------
 # collectives
 # ----------------------------------------------------------------------
-def pmin(replicas: list) -> list:
+def _across(mesh: Optional[Mesh], t: torch.Tensor, op) -> torch.Tensor:
+    """This process's partial result t reduced with op across the
+    processes of `mesh`, in process order (bit-identical on every process);
+    t itself on a single-process mesh."""
+    if mesh is None or mesh.n_proc == 1:
+        return t
+    g = torch.as_tensor(allgather(t.detach().cpu().numpy()))
+    tot = g[0]
+    for x in g[1:]:
+        tot = op(tot, x)
+    return tot.to(t.device)
+
+
+def pmin(replicas: list, mesh: Optional[Mesh] = None) -> list:
     """All-reduce min over per-shard replicas, in place: every replica ends
-    equal to the elementwise min of all of them."""
-    m = replicas[0]
-    for r in replicas[1:]:
+    equal to the elementwise min of all of them (the local shards' first,
+    then across the processes of `mesh`). None entries (other processes'
+    shards) are skipped."""
+    loc = [r for r in replicas if r is not None]
+    m = loc[0]
+    for r in loc[1:]:
         m = torch.minimum(m, r.to(m.device))
-    for r in replicas:
+    m = _across(mesh, m, torch.minimum)
+    for r in loc:
         r.copy_(m)
     return replicas
 
 
-def psum(parts: list) -> list:
+def psum(parts: list, mesh: Optional[Mesh] = None) -> list:
     """All-reduce sum over per-shard tensors: the total on every shard's
-    device (summed in shard order)."""
-    tot = parts[0]
-    for p in parts[1:]:
+    device, summed in shard order over the local shards, then in process
+    order across the processes of `mesh` (so every process holds the same
+    bits). None entries (other processes' shards) stay None."""
+    loc = [p for p in parts if p is not None]
+    tot = loc[0]
+    for p in loc[1:]:
         tot = tot + p.to(tot.device)
-    return [tot.to(p.device) for p in parts]
+    tot = _across(mesh, tot, torch.add)
+    return [None if p is None else tot.to(p.device) for p in parts]
+
+
+def _cross(mesh: Mesh, sends: dict) -> dict:
+    """Rows between processes: sends[(src, dst)] a tensor from a local
+    shard src to a shard dst of another process. Returns {(src, dst):
+    tensor on dst's device} for this process's shards dst (one allgather of
+    host copies)."""
+    out = {}
+    mine = {k: v.cpu().numpy() for k, v in sends.items()}
+    for p, got in enumerate(allgather_object(mine)):
+        if p == mesh.pid:
+            continue
+        for (s, d), v in got.items():
+            if mesh.devices[d] is not None:
+                out[(s, d)] = torch.as_tensor(v).to(mesh.devices[d])
+    return out
+
+
+def _hop(mesh: Mesh, bufs: list, k: int):
+    """Shard s's buffer to shard (s + k) mod n, for this process's shards
+    s: device copies to this process's shards (out, None elsewhere), and
+    the buffers bound for another process's shards ({(s, d): buffer})."""
+    n = mesh.size
+    out, sends = [None] * n, {}
+    for s in mesh.local_ids:
+        d = (int(s) + k) % n
+        if bufs[s] is None:
+            continue
+        if mesh.devices[d] is not None:
+            out[d] = bufs[s].to(mesh.devices[d])
+        else:
+            sends[(int(s), d)] = bufs[s]
+    return out, sends
 
 
 def ppermute(mesh: Mesh, bufs: list, k: int) -> list:
-    """Shard s's buffer moves to shard (s + k) mod n."""
-    n = mesh.size
-    out = [None] * n
-    for s in range(n):
-        d = (s + k) % n
-        out[d] = bufs[s].to(mesh.devices[d])
+    """Shard s's buffer moves to shard (s + k) mod n: a device copy between
+    this process's shards, through the host allgather between processes
+    (every process calls it)."""
+    out, sends = _hop(mesh, bufs, k)
+    if mesh.n_proc > 1:
+        for (s, d), v in _cross(mesh, sends).items():
+            out[d] = v
     return out
 
 
 def all_to_all(mesh: Mesh, sends: list) -> list:
-    """sends[s] (n, ...) on shard s: row d goes to shard d. Returns
-    recv[d] (n, ...) on shard d, row s from shard s."""
+    """sends[s] (n, ...) on local shard s: row d goes to shard d. Returns
+    recv[d] (n, ...) on local shard d, row s from shard s (rows between
+    processes through the host allgather; every process calls it)."""
     n = mesh.size
-    return [torch.stack([sends[s][d].to(mesh.devices[d]) for s in range(n)])
-            for d in range(n)]
+    loc = [int(i) for i in mesh.local_ids]
+    remote = {}
+    if mesh.n_proc > 1:
+        remote = _cross(mesh, {(s, d): sends[s][d] for s in loc
+                               for d in range(n)
+                               if mesh.devices[d] is None})
+    return [None if mesh.devices[d] is None else torch.stack(
+        [sends[s][d].to(mesh.devices[d]) if mesh.devices[s] is not None
+         else remote[(s, d)] for s in range(n)]) for d in range(n)]
 
 
 # ----------------------------------------------------------------------
@@ -242,7 +492,9 @@ def sharded_optimize_step(mesh: Mesh, ctx: popt.SceneCtx, opt: Options,
     shard_batch) and the per-shard z-buffer replicas, and returns
     (centers', normals', scales', views', ok, colors) as sharded batches
     and the replicas: each shard scatter-mins its accepted patches into its
-    own replica, then pmin makes them consistent (in place)."""
+    own replica, then pmin makes them consistent (in place), across the
+    processes too. Over a mesh that spans processes each process runs its
+    own shards (None in and out for the others')."""
     n_shards = mesh.size
     ctxs = replicate_tables(mesh, ctx)
     tabs = _pack_tables(mesh, pack)
@@ -251,6 +503,9 @@ def sharded_optimize_step(mesh: Mesh, ctx: popt.SceneCtx, opt: Options,
     def step(c, n, s, v, depth):
         outs = []
         for i in range(n_shards):
+            if depth[i] is None:            # another process's shard
+                outs.append((None,) * 6)
+                continue
             oc, on, os_, ov, ok, col, _ = popt._optimize_all(
                 ctxs[i], opt, c[i], n[i], s[i], v[i])
             v_ok = torch.where(ok[:, None], ov, torch.full_like(ov, -1))
@@ -262,7 +517,7 @@ def sharded_optimize_step(mesh: Mesh, ctx: popt.SceneCtx, opt: Options,
                 torch.where(valid, d, torch.full_like(d, float("inf")))
                 .reshape(-1), "amin")
             outs.append((oc, on, os_, ov, ok, col))
-        pmin(depth)
+        pmin(depth, mesh)
         return tuple([o[j] for o in outs] for j in range(6)) + (depth,)
 
     return step, n_shards
@@ -278,9 +533,14 @@ def gate_shards(ctxs, tabs, opt: Options, n_images: int, lanes, depth, pend,
     stay equal. slabs[i]: shard i's image slab (per-block image subsets):
     textures come from it, while the geometric gates keep the global image
     dims (ctxs[i].imgs). Returns per-shard output tuples (None where a shard
-    had no lanes)."""
+    had no lanes). The shards of other processes (depth[i] None) are
+    skipped: each process applies the same window to its own replicas, so
+    every replica stays equal without a device collective."""
     outs = []
     for i, d in enumerate(depth):
+        if d is None:
+            outs.append(None)
+            continue
         local = dataclasses.replace(tabs[i], depth=d)
         p = None if pend is None else pend[i]
         if lanes[i] is None:
@@ -344,6 +604,8 @@ def sharded_apply_depth_updates(mesh: Mesh, cams, pack: depth_mod.DepthPack,
                     isinstance(a, torch.Tensor) else a for a in (c, s, v, ph))
         wins = replicate_tables(mesh, win)
         for i, d in enumerate(depth):
+            if d is None:
+                continue
             depth_mod.apply_phased_updates(
                 dataclasses.replace(tabs[i], depth=d), camss[i], *wins[i],
                 subsample)
@@ -362,7 +624,9 @@ def make_halo_exchange(mesh: Mesh, slots: int):
     and returns (recv_payload, recv_valid, n_dropped): each shard receives
     up to `slots` incoming patches per source shard, as (n_shards * slots,
     D) rows, source-major; overflow beyond `slots` is counted in n_dropped
-    (summed over the mesh) so callers can retry with more slots. Packing is
+    (summed over the mesh) so callers can retry with more slots; over a
+    mesh that spans processes, each process passes and gets its own
+    shards' entries (None for the others'). Packing is
     a stable sort by destination and one scatter, O(B log B) per shard.
     Blocks map to shards by identity modulo the mesh size (JAX's
     n_blocks argument, which it does not use either, is left out)."""
@@ -389,28 +653,38 @@ def make_halo_exchange(mesh: Mesh, slots: int):
         return send[:n, :slots], sv[:n, :slots], dropped
 
     def fn(block_of, payload):
-        packed = [pack_one(b, p) for b, p in zip(block_of, payload)]
-        recv = all_to_all(mesh, [p[0] for p in packed])
-        recv_valid = all_to_all(mesh, [p[1] for p in packed])
-        dropped = int(psum([p[2] for p in packed])[0])
-        return ([r.reshape((n * slots,) + tuple(r.shape[2:])) for r in recv],
-                [v.reshape(n * slots) for v in recv_valid], dropped)
+        packed = [None if b is None else pack_one(b, p)
+                  for b, p in zip(block_of, payload)]
+        recv = all_to_all(mesh, [None if p is None else p[0]
+                                 for p in packed])
+        recv_valid = all_to_all(mesh, [None if p is None else p[1]
+                                       for p in packed])
+        dropped = psum([None if p is None else p[2] for p in packed], mesh)
+        dropped = int(next(d for d in dropped if d is not None))
+        return ([r if r is None else
+                 r.reshape((n * slots,) + tuple(r.shape[2:])) for r in recv],
+                [v if v is None else v.reshape(n * slots)
+                 for v in recv_valid], dropped)
 
     return fn
 
 
 def make_pairwise_halo(mesh: Mesh, k: int):
     """One ragged-halo hop: every shard ships its patch rows to the shard
-    `k` positions ahead (mod mesh size) by ppermute. The spatial
-    engine knows the exact per-(src, dst) migration counts on the host, so
-    it issues ONE hop per shard offset that carries patches, each sized to
-    that offset's own max count: the wire volume tracks the logical payload
-    instead of the dense all_to_all's (n_shards x slots) buffer per shard.
-    fn(pay, valid) takes and returns per-shard lists; the rows a shard
-    ships are its buffer's (JAX's slots argument is its leading size)."""
+    `k` positions ahead (mod mesh size). The spatial engine knows the
+    exact per-(src, dst) migration counts on the host, so it issues ONE
+    hop per shard offset that carries patches, each sized to that offset's
+    own max count: the wire volume tracks the logical payload instead of
+    the dense all_to_all's (n_shards x slots) buffer per shard. fn(pay,
+    valid) takes and returns per-shard lists; the rows a shard ships are
+    its buffer's (JAX's slots argument is its leading size). Only the hops
+    between this process's shards run (device copies, no collective; a
+    shard without rows passes None): over several processes the spatial
+    engine ships the rows for other processes itself, in one allgather
+    per round."""
 
     def fn(pay, valid):
-        return ppermute(mesh, pay, k), ppermute(mesh, valid, k)
+        return _hop(mesh, pay, k)[0], _hop(mesh, valid, k)[0]
 
     return fn
 
@@ -428,9 +702,10 @@ def halo_exchange(mesh: Mesh, block_of, payload, slots: int):
 def have_work_psum(mesh: Mesh, local_counts) -> int:
     """Termination detection: the sum of per-shard queue sizes (replaces the
     haveWork() OR reduction, main.cpp:174-180). local_counts: per-shard
-    counts, or an (n_shards,) array split over the mesh."""
+    counts (None for other processes' shards), or an (n_shards,) array
+    split over the mesh; summed across the processes too."""
     if not isinstance(local_counts, (list, tuple)):
         local_counts = shard_batch(mesh, local_counts)
-    parts = [c if isinstance(c, torch.Tensor) else torch.as_tensor(c)
-             for c in local_counts]
-    return int(psum(parts)[0].sum())
+    parts = [c if c is None or isinstance(c, torch.Tensor)
+             else torch.as_tensor(c) for c in local_counts]
+    return int(next(t for t in psum(parts, mesh) if t is not None).sum())

@@ -180,8 +180,11 @@ def build_block_packs(imgs: ImagePack, mask: np.ndarray,
     """Slice the global packed pyramid buffer (host arrays) into per-block
     slabs.
 
-    rows_b: slab height override (a multi-process engine passes the global
-    max: a process cannot know remote shards' unions, only its own)."""
+    rows_b: slab height override. The spatial engine passes its own
+    shards' largest (runtime/spatial.py::_agree_dim): the JAX owned engine
+    agrees the global max because its slabs form one SPMD array, while a
+    port process places only its own shards' slabs, each a tensor of its
+    own."""
     n_blocks, ncam = mask.shape
     tex_g = _host(imgs.tex)
     g_row0 = _host(imgs.row0)
@@ -217,9 +220,13 @@ def place_block_pack(mesh: pmesh.Mesh, bpack: BlockImagePack) -> list:
     ImagePack on shard i's device, uploaded once; dispatches then pass the
     placed tensors, so nothing re-transfers. Shards that share a device
     hold one slab each: on one GPU their sum can exceed the replicated
-    pack, which only a mesh of several devices divides."""
+    pack, which only a mesh of several devices divides. None for the
+    shards of other processes (they place their own)."""
     out = []
     for i, dev in enumerate(mesh.devices):
+        if dev is None:
+            out.append(None)
+            continue
         out.append(ImagePack(*(torch.as_tensor(np.ascontiguousarray(a[i]))
                                .to(dev) for a in (bpack.tex, bpack.row0,
                                                   bpack.width,

@@ -12,15 +12,18 @@ The file format is hpmvs_tpu/runtime/checkpoint.py's, key for key and dtype
 for dtype: a checkpoint written by either package loads into the other's
 engine. Any engine of the port saves and loads: one device, a mesh
 (shard 0's z-buffer replica is saved; a load re-copies the others) or the
-spatial engine (its slabs rebuild at the next dispatch). The per-process
-shares of the owned multi-process engine (`_owned_path`) wait for the
-multi-process port.
+spatial engine (its slabs rebuild at the next dispatch). The owned
+multi-process engine writes one share per process (`_owned_path`, the JAX
+package's file name), so a share from either package loads into the
+other's owned engine; every process calls save and load together (the
+deferred-window flush is a collective).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import torch
@@ -29,11 +32,27 @@ from hpmvs_tpu_torch import resolve_device
 from hpmvs_tpu_torch.core.octree import LinearOctree
 
 
+def _owned_path(engine, path: str):
+    """Owned multi-process engines checkpoint per process: each process's
+    store holds only its Morton range, so a shared path would clobber
+    (P-1)/P of the cloud and a global file loaded everywhere would
+    duplicate patches P-fold and violate the ownership invariant. Returns
+    the process-suffixed path (hpmvs_tpu/runtime/checkpoint.py:22-34), or
+    None for single-store engines."""
+    pid = getattr(engine, "pid", None)
+    if pid is None:
+        return None
+    # explicit .npz keeps np.savez from appending another extension, so
+    # save and load agree on the exact filename
+    return f"{path}.proc{pid}of{engine.n_proc}.npz"
+
+
 def save_checkpoint(engine, path: str) -> None:
-    """Write the engine's state to `path`. No speculation, deep dispatch or
-    one-shot routing flag survives into a checkpoint: dropping the
-    speculation first makes the saving engine continue exactly as an
-    engine that loads the file."""
+    """Write the engine's state to `path` (an owned engine: its share, to
+    _owned_path). No speculation, deep dispatch or one-shot routing flag
+    survives into a checkpoint: dropping the speculation first makes the
+    saving engine continue exactly as an engine that loads the file."""
+    path = _owned_path(engine, path) or path
     engine.drop_speculation()
     engine._flush_depths()  # deferred depth adds must land in the snapshot
     p = engine.patches
@@ -71,11 +90,23 @@ def load_checkpoint(engine, path: str, device="cuda") -> None:
     """Restore engine state in place. The engine must be built on the same
     scene and model (cameras and images come from the NVM, not the file).
     device: where the restored depth buffer goes, the GPU unless
-    device="cpu"; it must be the engine's."""
+    device="cpu"; it must be the engine's. Owned multi-process engines load
+    their process-suffixed share; a single-store checkpoint fed to an owned
+    run (or a resume under another process count) raises instead of
+    duplicating the cloud P-fold."""
     dev = resolve_device(device)
     if dev.type != engine.device.type:
         raise ValueError(f"load_checkpoint: device {dev} is not the "
                          f"engine's ({engine.device})")
+    opath = _owned_path(engine, path)
+    if opath is not None:
+        if not os.path.exists(opath):
+            raise FileNotFoundError(
+                f"owned multi-process resume needs the per-process share "
+                f"<{opath}> (written by save_checkpoint under the same "
+                f"process count); a single-store checkpoint cannot be "
+                f"loaded into an owned engine")
+        path = opath
     engine.drop_speculation()
     engine._pend = []
     z = np.load(path, allow_pickle=False)

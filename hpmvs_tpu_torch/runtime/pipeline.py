@@ -7,8 +7,11 @@ extract covisibility -> seed + optimize -> priority loop over
 OpenMP fan-out collapses into the Engine's batched wavefronts, on one device
 or sharded over a mesh of devices driven by this one process.
 
-The run() of hpmvs_tpu/runtime/pipeline.py; its multi-process launch (the
-owned engine, one process per host) waits for the multi-process port.
+The run() of hpmvs_tpu/runtime/pipeline.py, its multi-process launch
+included: under torchrun (or init_distributed's explicit arguments) every
+process runs run() and mesh="auto" builds one mesh over all processes'
+GPUs; spatial=True then runs the owned engine (runtime/owned.py), else the
+replicated engine.
 """
 
 from __future__ import annotations
@@ -57,39 +60,54 @@ def run(model: nvm_io.NvmModel, opt: Options, images=None,
     for one device, or "auto" (default): a mesh over every visible GPU when
     `device` is a GPU and more than one is visible, else none (the
     OpenMP-over-subtrees analog, main.cpp:127-139). With a mesh the engine
-    runs on its shards and `device` is its first shard.
+    runs on its shards and `device` is this process's first shard.
+
+    Multi-process: mesh="auto" first calls parallel.mesh.init_distributed()
+    (a no-op without a launch; torchrun's variables or a failed bring-up
+    raise rather than run once per process). With several processes the
+    mesh spans them all, over each process's GPUs -- cuda:LOCAL_RANK when a
+    host runs several processes, every visible GPU otherwise, the CPU with
+    device="cpu" -- and the engine is the owned one for spatial=True
+    (host state partitioned by Morton range; the reference's per-processor
+    subtrees, CellProcessor.h:60-68), the replicated Engine otherwise.
+    Process 0 writes the PLY files.
     spatial: partition the octree into Morton blocks on the mesh with halo
     border migration (the getSubTrees + border-queue analog, main.cpp:50-96,
     CellProcessor.cpp:487-540) instead of flat batch sharding; needs a mesh.
     image_subsets: with spatial, each shard holds only the image slab of
     the cameras whose frusta see its blocks (parallel/subsets.py).
 
-    More than one process (a torch.distributed launch) raises
-    NotImplementedError: the owned multi-process engine is not ported yet.
     The JAX run's enable_compile_cache has no counterpart: PyTorch runs
     eagerly and the CUDA kernels build once into build/ (kernels.py)."""
-    if _n_processes() > 1:
-        raise NotImplementedError(
-            "a multi-process launch needs the owned multi-process engine, "
-            "which is not ported yet")
+    from hpmvs_tpu_torch.parallel import mesh as pmesh
     if mesh is None or isinstance(mesh, str):
         device = resolve_device(device)
     if isinstance(mesh, str) and mesh == "auto":
         mesh = None
-        if device.type == "cuda" and torch.cuda.device_count() > 1:
-            from hpmvs_tpu_torch.parallel import mesh as pmesh
+        if pmesh.init_distributed() > 1:
+            mesh = pmesh.make_mesh(_local_devices(device))
+        elif device.type == "cuda" and torch.cuda.device_count() > 1:
             mesh = pmesh.make_mesh()
-            log.info("sharding wavefronts over %d devices %s", mesh.size,
-                     dict(zip(mesh.axis_names, mesh.shape)))
+        if mesh is not None:
+            log.info("sharding wavefronts over %d devices %s in %d "
+                     "processes", mesh.size,
+                     dict(zip(mesh.axis_names, mesh.shape)), mesh.n_proc)
     if mesh is not None:
-        device = mesh.devices[0]
+        device = mesh.first
     os.makedirs(opt.OUTFOLDER, exist_ok=True)
     if bundle_adjust and model.n_points > 0:
         from hpmvs_tpu_torch.parallel import ba
         prob = ba.build_problem(model, device=device)
-        cam, pts, hist = ba.ba_solve(prob, len(model.cameras),
-                                     model.n_points, iters=6, cg_iters=40,
-                                     device=device)
+        if mesh is not None and mesh.n_proc > 1:
+            # one solve over the process-spanning mesh: every process
+            # adopts the same bits (separate solves may differ on CUDA)
+            cam, pts, hist = ba.ba_solve_sharded(
+                mesh, ba.shard_problem(prob, mesh.size), len(model.cameras),
+                model.n_points, iters=6, cg_iters=40)
+        else:
+            cam, pts, hist = ba.ba_solve(prob, len(model.cameras),
+                                         model.n_points, iters=6,
+                                         cg_iters=40, device=device)
         hist = hist.cpu().numpy()
         log.info("bundle adjustment: reprojection RMS %.4f -> %.4f px",
                  float(hist[0]), float(hist[-1]))
@@ -101,15 +119,23 @@ def run(model: nvm_io.NvmModel, opt: Options, images=None,
     if spatial:
         if mesh is None:
             raise ValueError("spatial=True requires a device mesh")
-        from hpmvs_tpu_torch.runtime.spatial import SpatialEngine
-        cls, kw = SpatialEngine, dict(image_subsets=image_subsets)
+        if mesh.n_proc > 1:
+            # per-process scheduler ownership: host state partitioned by
+            # Morton range, patch records cross only as halo rows
+            from hpmvs_tpu_torch.runtime.owned import OwnedSpatialEngine
+            cls = OwnedSpatialEngine
+        else:
+            from hpmvs_tpu_torch.runtime.spatial import SpatialEngine
+            cls = SpatialEngine
+        kw = dict(image_subsets=image_subsets)
     if mesh is not None:
         kw["mesh"] = mesh
     else:
         kw["device"] = device
-    engine = cls(model, opt, images=images,
-                 visdata_path=os.path.join(opt.OUTFOLDER, "testvis.dat"),
-                 **kw)
+    # (process 0 writes it: every process computes the same file)
+    vis = (os.path.join(opt.OUTFOLDER, "testvis.dat")
+           if mesh is None or mesh.pid == 0 else None)
+    engine = cls(model, opt, images=images, visdata_path=vis, **kw)
     engine.wave_hook = wave_hook
     if resume:
         from hpmvs_tpu_torch.runtime import checkpoint as ckpt
@@ -208,13 +234,15 @@ def run(model: nvm_io.NvmModel, opt: Options, images=None,
     return engine
 
 
-def _n_processes() -> int:
-    """Processes of this launch: torch.distributed's world size when it is
-    initialised, else the launcher's WORLD_SIZE, else 1."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
+def _local_devices(device: torch.device) -> list:
+    """This process's shards in a multi-process launch: the CPU for a CPU
+    run; cuda:LOCAL_RANK when the launcher runs several processes on this
+    host (torchrun's LOCAL_WORLD_SIZE); else every visible GPU."""
+    if device.type != "cuda":
+        return [device]
+    if int(os.environ.get("LOCAL_WORLD_SIZE", "1")) > 1:
+        return [f"cuda:{int(os.environ['LOCAL_RANK'])}"]
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
 
 
 def run_nvm_file(path: str, opt: Options, **kw) -> Engine:

@@ -33,11 +33,15 @@ Design (hpmvs_tpu/runtime/spatial.py's):
     cameras (parallel/subsets.py), rebuilt when the per-shard camera unions
     grow or shrink materially.
 
-Single-process semantics: the host octree and patch store are global (the
-reference's subtree views likewise share one tree); ownership is expressed
-through the batch layout and the migration path. The agree hooks are the
-identity here; the multi-process engine (runtime/owned.py in the JAX
-package) is not ported yet.
+Semantics: the host octree and patch store are global (the reference's
+subtree views likewise share one tree); ownership is expressed through the
+batch layout and the migration path. The agree hooks are the identity here.
+Over a mesh that spans processes this engine runs replicated (every process
+holds the whole scheduler, as the JAX engine's multi-controller mode): a
+process computes its own shards' lanes and ships its own shards' halo rows,
+the dispatch outputs and the halo arrivals are allgathered (Engine._fetch),
+and every process inserts every arrival. runtime/owned.py partitions the
+host state by process instead.
 """
 
 from __future__ import annotations
@@ -186,9 +190,12 @@ class SpatialEngine(Engine):
         return self.tree if self.tree is not None else self._provisional
 
     def _agree_rebuild(self, needed: bool) -> bool:
-        """Agree the slab-rebuild decision (identity here; a multi-process
-        engine ORs it across processes, since the rebuild runs a global
-        collective)."""
+        """Agree the slab-rebuild decision. The identity, here and in the
+        owned engine: the JAX engine ORs it across processes because its
+        rebuild runs a collective (_agree_dim) that agrees the SPMD slab
+        shape; a port process places its own shards' slabs at their own
+        height, with no collective, so each rebuilds when its own slabs
+        need it."""
         return bool(needed)
 
     def _covis_reach_mat(self) -> np.ndarray:
@@ -221,7 +228,7 @@ class SpatialEngine(Engine):
         sampled a zeroed camera and silently diverged from the replicated
         run)."""
         ncam = self.scene.n_cameras
-        sh = self.block_shard[blocks]
+        sh = self._lane_shards(blocks)
         need = np.zeros((self.n_shards, ncam), bool)
         slots = np.zeros((self.n_shards, ncam), np.int64)
         v = views.ravel()
@@ -318,9 +325,9 @@ class SpatialEngine(Engine):
             self.stats["subset_pending_overrides"] = int(
                 (self._pending_view_mask & ~mask).sum())
             mask |= self._pending_view_mask
-        local_rows = subsets.slab_rows(self.scene.height_np, mask)
-        key = (tuple(t.center), t.width,
-               mask[self._shard_local_mask()].tobytes(), local_rows)
+        lm = self._shard_local_mask() & self.mesh.local
+        local_rows = subsets.slab_rows(self.scene.height_np, mask[lm])
+        key = (tuple(t.center), t.width, mask[lm].tobytes(), local_rows)
         if self._bpack_dev is None or self._bpack_key is None:
             needed = True
         elif self._bpack_key == key:
@@ -334,22 +341,24 @@ class SpatialEngine(Engine):
             same_geom = (self._bpack_key[0] == tuple(t.center)
                          and self._bpack_key[1] == t.width)
             committed = np.frombuffer(self._bpack_key[2], bool).reshape(
-                mask[self._shard_local_mask()].shape)
-            grew = bool((mask[self._shard_local_mask()] & ~committed).any())
+                mask[lm].shape)
+            grew = bool((mask[lm] & ~committed).any())
             rows_committed = int(self._bpack_key[3])
             needed = ((not same_geom) or grew
                       or local_rows < 0.8 * rows_committed)
         if not self._agree_rebuild(needed):
             return
-        host = subsets.build_block_packs(imgs, mask,
+        # only this process's shards' slabs are cut (the others' rows stay
+        # empty)
+        host = subsets.build_block_packs(imgs, mask & lm[:, None],
                                          rows_b=self._agree_dim(local_rows))
         self._bpack_dev = None    # the old slabs go before the new ones
         self._bpack_dev = subsets.place_block_pack(self.mesh, host)
         self._bpack_key = key
         self._committed_mask = mask.copy()
         total_rows = int(imgs.tex.shape[0])
-        self.stats["subset_cams_max"] = int(mask.sum(1).max())
-        self.stats["subset_cams_mean"] = float(mask.sum(1).mean())
+        self.stats["subset_cams_max"] = int(mask[lm].sum(1).max())
+        self.stats["subset_cams_mean"] = float(mask[lm].sum(1).mean())
         # per-BLOCK exclusion (before the shard union): the saving a larger
         # mesh realizes, since shard working sets shrink toward one block's
         # as devices grow
@@ -363,7 +372,8 @@ class SpatialEngine(Engine):
         log.info(
             "image subsets: %d cams -> %.1f mean / %d max per shard; "
             "%d rows/shard vs %d replicated (%.0f%%)",
-            mask.shape[1], float(mask.sum(1).mean()), int(mask.sum(1).max()),
+            mask.shape[1], float(mask[lm].sum(1).mean()),
+            int(mask[lm].sum(1).max()),
             host.tex.shape[1], total_rows,
             100.0 * host.tex.shape[1] / max(total_rows, 1))
 
@@ -391,21 +401,36 @@ class SpatialEngine(Engine):
     # with schedule(dynamic), main.cpp:50-96,150).
     # ------------------------------------------------------------------
     def _agree_shard_counts(self, counts: np.ndarray) -> np.ndarray:
-        """Per-shard lane counts for shape agreement (identity here)."""
+        """Global per-shard lane counts, which fix a dispatch's rounds
+        (identity here: every process holds every lane; the owned engine
+        sums across processes, since every process must join every round,
+        each carrying the deferred-window gather)."""
         return counts
 
     def _agree_dim(self, n: int) -> int:
-        """Agree a padded dimension across processes (identity here)."""
+        """The slab height (identity, here and in the owned engine: the JAX
+        engine agrees the global max because its slabs are one SPMD array;
+        a port process places its own shards' slabs at their own height)."""
         return int(n)
 
     def _shard_local_mask(self) -> np.ndarray:
-        """(n_shards,) bool: which shards this process reads arrivals from
-        (all of them here)."""
+        """(n_shards,) bool: which shards this process reads arrivals and
+        slab coverage from (all of them here, the other processes' shards
+        through the allgather; the owned engine: its own)."""
         return np.ones(self.n_shards, bool)
 
     def _agree_pair(self, pair: np.ndarray) -> np.ndarray:
-        """Per-(src, dst) halo pair counts (identity here)."""
+        """Per-(src, dst) halo pair counts (identity, here and in the owned
+        engine: the JAX engine agrees them because its hops are SPMD
+        collectives of one shape; a port process sizes the hops between
+        its own shards itself and ships the rows for other processes in one
+        allgather of their exact rows)."""
         return pair
+
+    def _lane_shards(self, blocks: np.ndarray) -> np.ndarray:
+        """The shard that computes each lane, from its block (the owned
+        engine keeps every lane on its own shards)."""
+        return self.block_shard[blocks]
 
     @staticmethod
     def _lpt_assign(counts: np.ndarray, n_shards: int) -> np.ndarray:
@@ -541,7 +566,7 @@ class SpatialEngine(Engine):
         if self.image_subsets:
             # arrays[3] is the per-lane view list
             self._stage_pending_views(blocks, arrays[3])
-        shards = self.block_shard[blocks]
+        shards = self._lane_shards(blocks)
         order = np.argsort(shards, kind="stable")
         counts_l = np.bincount(shards, minlength=self.n_shards)
         counts_g = self._agree_shard_counts(counts_l)
@@ -556,7 +581,7 @@ class SpatialEngine(Engine):
         t0 = time.time()
         devs = []
         for r in range(rounds):
-            parts, idxs = [], []
+            parts, idxs = [], [None] * self.n_shards
             for s in range(self.n_shards):
                 a = starts[s] + r * lseg
                 b = min(starts[s] + (r + 1) * lseg, starts[s + 1])
@@ -564,20 +589,21 @@ class SpatialEngine(Engine):
                     parts.append(None)
                     continue
                 idx = order[a:b]
-                idxs.append(idx)
+                idxs[s] = idx
                 parts.append(tuple(x[idx] for x in arrays))
             devs.append((self._mesh_dispatch(parts, gates), idxs))
             self.stats["dispatches"] += 1
             self.stats["disp_extend"] += 1
-        outs = [None] * 6
+        # (an owned process may hold no lane of a dispatch it joins)
+        K = arrays[3].shape[1]
+        outs = [np.zeros((N, 3), np.float32), np.zeros((N, 3), np.float32),
+                np.zeros(N, np.float32), np.full((N, K), -1, np.int32),
+                np.zeros(N, bool), np.zeros((N, 3), np.float32)]
         for dev, idxs in devs:
-            res = [tuple(t.cpu().numpy() for t in o) for o in dev
-                   if o is not None]
-            for idx, got in zip(idxs, res):
+            for idx, got in zip(idxs, self._fetch(dev)):
+                if idx is None:
+                    continue
                 for j in range(6):
-                    if outs[j] is None:
-                        outs[j] = np.empty((N,) + got[j].shape[1:],
-                                           got[j].dtype)
                     outs[j][idx] = got[j]
         self.stats["t_device"] += time.time() - t0
         if self.image_subsets:
@@ -660,12 +686,21 @@ class SpatialEngine(Engine):
 
         Ragged composition: migrations are grouped by shard offset
         k = (dst - src) mod n_shards; only offsets that actually carry
-        patches issue a ppermute hop, each sized to its own max per-source
-        count. Every hop is enqueued before the first copy back, and
-        nothing can be dropped -- every row has a dedicated slot by
-        construction."""
+        patches issue a hop, each sized to its own max per-source count.
+        Every hop is enqueued before the first copy back, and nothing can
+        be dropped -- every row has a dedicated slot by construction.
+
+        Over several processes each process ships its own shards' rows:
+        rows for its own shards stay device copies (the hops), rows for
+        another process's shards cross in ONE host allgather per round,
+        exactly the rows (halo_bytes_xproc). Arrivals are read from
+        _shard_local_mask's shards: the owned engine its own; the
+        replicated engine all of them (a second allgather). Every process
+        enters here together (_route_extend's agreed count) and runs both
+        collectives before its first local return."""
         K = ov.shape[1]
         D = self._HDR + K
+        n = self.n_shards
         idx_all = np.nonzero(remote)[0]
 
         payload_all = np.zeros((len(idx_all), D), np.float32)
@@ -677,70 +712,95 @@ class SpatialEngine(Engine):
         payload_all[:, 11] = prio_red[idx_all]
         payload_all[:, self._HDR:] = ov[idx_all].astype(np.float32)
 
-        koff = (dst_sh[idx_all] - src_sh[idx_all]) % self.n_shards
+        koff = (dst_sh[idx_all] - src_sh[idx_all]) % n
         # per-(src, dst) pair counts: the hop list and each hop's slots
-        pair_l = np.zeros((self.n_shards, self.n_shards), np.int64)
+        pair_l = np.zeros((n, n), np.int64)
         np.add.at(pair_l, (src_sh[idx_all], dst_sh[idx_all]), 1)
         pair = self._agree_pair(pair_l)
-        devs = []
+        mine = self.mesh.local
+        devs, cross = [], {}
         t0 = time.time()
-        src_ids = np.arange(self.n_shards)
-        for k in range(1, self.n_shards):
-            diag = pair[src_ids, (src_ids + k) % self.n_shards]
+        src_ids = np.arange(n)
+        for k in range(1, n):
+            dst_ids = (src_ids + k) % n
+            diag = np.where(mine, pair[src_ids, dst_ids], 0)
             if diag.max() == 0:
                 continue
             slots = int(diag.max())
-            rows = np.nonzero(koff == k)[0]
+            # this process ships its own shards' rows
+            rows = np.nonzero((koff == k) & mine[src_sh[idx_all]])[0]
             sb = src_sh[idx_all[rows]]
-            counts = np.bincount(sb, minlength=self.n_shards)
-            starts = np.zeros(self.n_shards + 1, np.int64)
+            counts = np.bincount(sb, minlength=n)
+            starts = np.zeros(n + 1, np.int64)
             starts[1:] = np.cumsum(counts)
             order = np.argsort(sb, kind="stable")
             lane = sb[order] * slots + (np.arange(len(rows))
                                         - starts[sb[order]])
-            pay = np.zeros((self.n_shards * slots, D), np.float32)
-            val = np.zeros((self.n_shards * slots,), bool)
+            pay = np.zeros((n * slots, D), np.float32)
+            val = np.zeros((n * slots,), bool)
             pay[lane] = payload_all[rows[order]]
             val[lane] = True
-            # shard s ships rows [s*slots, (s+1)*slots)
-            pay_s = [self._dev(pay[s * slots:(s + 1) * slots], d)
-                     for s, d in enumerate(self.mesh.devices)]
-            val_s = [self._dev(val[s * slots:(s + 1) * slots], d)
-                     for s, d in enumerate(self.mesh.devices)]
-            hop = pmesh.make_pairwise_halo(self.mesh, int(k))
-            devs.append((slots, hop(pay_s, val_s)))
-            self.stats["halo_bytes_wire"] += self.n_shards * slots * (D * 4
-                                                                      + 1)
-        got = [(np.concatenate([p.cpu().numpy() for p in g[0]]),
-                np.concatenate([v.cpu().numpy() for v in g[1]]))
-               for _, g in devs]
+            # shard s ships rows [s*slots, (s+1)*slots): to a shard of this
+            # process by a device hop, to another process's in `cross`
+            hop = mine & mine[dst_ids]
+            for s_ in np.nonzero(mine & ~mine[dst_ids] & (diag > 0))[0]:
+                blk = slice(s_ * slots, (s_ + 1) * slots)
+                cross[(k, int(dst_ids[s_]))] = pay[blk][val[blk]]
+            if not hop.any():
+                continue
+            pay_s = [self._dev(pay[s_ * slots:(s_ + 1) * slots], d)
+                     if hop[s_] else None
+                     for s_, d in enumerate(self.mesh.devices)]
+            val_s = [self._dev(val[s_ * slots:(s_ + 1) * slots], d)
+                     if hop[s_] else None
+                     for s_, d in enumerate(self.mesh.devices)]
+            fn = pmesh.make_pairwise_halo(self.mesh, int(k))
+            devs.append((int(k), fn(pay_s, val_s)))
+            self.stats["halo_bytes_wire"] += int(hop.sum()) * slots * (
+                D * 4 + 1)
+        # arrivals per (hop, destination shard): host rows already valid
+        got = {}
+        for k, (p_out, v_out) in devs:
+            for d, (pp, vv) in enumerate(zip(p_out, v_out)):
+                if pp is not None:
+                    got[(k, d)] = pp.cpu().numpy()[vv.cpu().numpy()]
+        if self.mesh.n_proc > 1:
+            xbytes = sum(int(r.nbytes) for r in cross.values())
+            self.stats["halo_bytes_xproc"] += xbytes
+            self.stats["halo_bytes_wire"] += xbytes
+            for p, g in enumerate(pmesh.allgather_object(cross)):
+                if p != self.mesh.pid:
+                    got.update((kd, r) for kd, r in g.items() if mine[kd[1]])
+            self.stats["host_collectives"] += 1
+        lmask = self._shard_local_mask()
+        if (lmask & ~mine).any():
+            # the replicated engine inserts every shard's arrivals
+            for p, g in enumerate(pmesh.allgather_object(got)):
+                if p != self.mesh.pid:
+                    got.update(g)
+            self.stats["host_collectives"] += 1
         self.stats["t_device"] += time.time() - t0
         self.stats["halo_rounds"] += 1
         self.stats["halo_hops"] += len(devs)
         self.stats["migrated"] += len(idx_all)
         # wire accounting: logical patch payload vs the ragged hop buffers
-        # actually moved
+        # and cross-process rows actually moved
         self.stats["halo_bytes_logical"] += len(idx_all) * D * 4
 
-        recv = np.concatenate([g[0] for g in got])
-        # only lanes on this process's shards are real arrivals
-        # (shard = lane // slots)
-        lmask = self._shard_local_mask()
-        valid = np.concatenate(
-            [g[1] & np.repeat(lmask, sl) for (sl, _), g in zip(devs, got)])
-        a = np.nonzero(valid)[0]
+        # hop-major, then destination-shard order
+        parts = [got[kd] for kd in sorted(got) if lmask[kd[1]]]
+        r = np.concatenate(parts) if parts else np.zeros((0, D), np.float32)
         # wire-delivery invariant: every migrated patch has a dedicated slot
         # (no drops by construction), so arrivals == migrations
-        self.stats["halo_arrivals"] += len(a)
-        if len(a) == 0:
+        self.stats["halo_arrivals"] += len(r)
+        if len(r) == 0:
             return 0
-        r = recv[a]
         # reference semantics: border arrivals skip regularization
         # (flatness_=0, CellProcessor.cpp:513-514) and are marked dirty so
         # initFromTree re-queues them (CellProcessor.cpp:443)
         n_ins = self._insert_new_patches(
             r[:, 0:3], r[:, 3:6], r[:, 6], r[:, self._HDR:].astype(np.int32),
-            np.ones(len(a), bool), r[:, 7:10],
+            np.ones(len(r), bool), r[:, 7:10],
             r[:, 10].astype(np.int64), r[:, 11].astype(np.int32),
             flatness=0.0, dirty=True)
         self.stats["migrated_inserted"] += n_ins

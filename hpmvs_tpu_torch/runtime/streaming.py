@@ -22,8 +22,8 @@ for Morton-block ownership + halo migration, `image_subsets` for per-shard
 image slabs. Scene rebuilds on chunk arrival go through
 Engine.refresh_host_caches, which also drops the mesh closures and the
 spatial engine's slabs; a reroot changes the root cube, so the slabs
-rebuild at the next dispatch. The owned multi-process engine waits for the
-multi-process port.
+rebuild at the next dispatch. Streaming over the owned multi-process
+engine (runtime/owned.py) is in neither package.
 """
 
 from __future__ import annotations

@@ -47,13 +47,24 @@ device; the host waits only when it copies results back.
 
 Mesh (parallel/mesh.py): Engine(mesh=...) splits every extend chunk over
 the mesh's shards, one optimize_and_gate per shard on its own device with
-its own z-buffer replica (shard 0's is self.pack.depth); the deferred depth
-window applies to every replica once. Without shape buckets each shard
-takes its exact lane count: a BATCH chunk gives each shard at most
-BATCH // n_shards lanes. Deep waves are off under a mesh (as in the JAX
-engine); the lookahead stays on. The coordination hooks (_count_global,
-_agree_pmin, ...) are the identity in this single-process engine: a
-multi-process engine overrides them (not ported yet).
+its own z-buffer replica (the first shard's is self.pack.depth); the
+deferred depth window applies to every replica once. Without shape
+buckets each shard takes its exact lane count: a BATCH chunk gives each
+shard at most BATCH // n_shards lanes. Deep waves are off under a mesh (as
+in the JAX engine); the lookahead stays on.
+
+Several processes (a mesh that spans them, parallel/mesh.init_distributed):
+this engine is the JAX engine's replicated multi-controller mode (its _mp,
+hpmvs_tpu/runtime/wavefront.py:98-142). Every process runs the whole host
+scheduler; a dispatch computes only this process's shards' lanes, and its
+six outputs are allgathered across the processes in shard order before the
+host reads them (_fetch), so every process applies identical bookkeeping.
+Every process applies the same deferred depth window to its own replicas,
+so they stay equal without a device collective. Unlike the JAX engine,
+which turns the lookahead off here, the lookahead stays on: each process
+speculates identically and fetches at the same points. The coordination
+hooks (_count_global, _agree_pmin, ...) are the identity in this engine;
+the owned engine (runtime/owned.py) overrides them with host collectives.
 """
 
 from __future__ import annotations
@@ -86,6 +97,9 @@ class Engine:
     """Owns the whole reconstruction state: device scene context + depth
     buffers, host patch store + linear octree + priority queues.
 
+    _REPLICATED: every process holds the whole scheduler state (False in
+    the owned engine, runtime/owned.py).
+
     native_octree: answer the octree's large queries with the native
     library (built at first use; a failed build raises), else with numpy.
     stats["octree_native"] records which.
@@ -95,6 +109,8 @@ class Engine:
     mesh's first shard (a different `device` raises). host_images: keep
     the packed pyramid's texture on the host (per-block image subsets
     place only their per-shard slabs on the devices)."""
+
+    _REPLICATED = True
 
     def __init__(self, model, opt: Options, images=None,
                  visdata_path: Optional[str] = None, device=None,
@@ -107,11 +123,14 @@ class Engine:
             self.device = resolve_device("cuda" if device is None
                                          else device)
         else:
-            self.device = mesh.devices[0]
+            self.device = mesh.first
             if device is not None and pmesh._resolve(device) != self.device:
                 raise ValueError(f"Engine: device {device} is not the "
                                  f"mesh's first shard ({self.device})")
         self._host_images = host_images
+        # a mesh spanning several processes: the replicated
+        # multi-controller mode (outputs allgathered at _fetch)
+        self._mp = mesh is not None and mesh.n_proc > 1
         self._sharded_gate_fn = None
         self._flush_fn = None
         self._depth_replicas = None
@@ -297,40 +316,57 @@ class Engine:
 
     def _pend_raw(self, c, s, v, subtract: bool):
         """Stage raw depth windows (also the deep waves' add and subtract
-        repairs). A second subtract run after an add-after-sub run would
-        need a 4th phase -- flush first (rare)."""
+        repairs)."""
         if len(s) == 0:
             return
-        if subtract and any(e[3] for e in self._pend) \
-                and not self._pend[-1][3]:
-            self._flush_depths()
         self._pend.append((np.array(c, np.float32), np.array(s, np.float32),
                            np.array(v, np.int32), subtract))
 
     def _pend_arrays(self):
-        """Concatenate the deferred window into (c, s, v, phase)."""
+        """Concatenate the deferred updates into (c, s, v, phase). One
+        window holds the phases add*/sub*/add* (0, 1, 2); a subtract after
+        an add-after-sub run opens the next window, whose phases are tagged
+        3 higher."""
+        if not self._pend:       # an owned process joins a gather empty
+            K = self.opt.MAX_VIEWS
+            return (np.zeros((0, 3), np.float32), np.zeros(0, np.float32),
+                    np.full((0, K), -1, np.int32), np.zeros(0, np.int32))
         c = np.concatenate([e[0] for e in self._pend])
         s = np.concatenate([e[1] for e in self._pend])
         v = np.concatenate([e[2] for e in self._pend])
-        seen_sub = False
+        base, seen_sub, prev = 0, False, None
         phs = []
         for e in self._pend:
             if e[3]:
+                if seen_sub and prev == 2:
+                    base, seen_sub = base + 3, False
                 seen_sub = True
                 ph = 1
             else:
                 ph = 2 if seen_sub else 0
-            phs.append(np.full(len(e[1]), ph, np.int32))
+            prev = ph
+            phs.append(np.full(len(e[1]), base + ph, np.int32))
         return c, s, v, np.concatenate(phs)
 
     def _take_pending_host(self):
-        """The deferred window as host arrays (c, s, v, phase), or None when
-        nothing is pending; the window is cleared."""
+        """The deferred updates' last window as host arrays (c, s, v,
+        phase), or None when nothing is pending; everything pending is
+        cleared. Earlier windows (a fourth phase was needed) apply on their
+        own first, in order. Nothing flushes at staging time: the windows
+        are taken where every process takes them (a dispatch, a flush), so
+        a multi-process engine's gather stays in lockstep."""
         if self._count_global(len(self._pend)) == 0:
             return None
-        arrs = self._gather_pend(*self._pend_arrays())
+        c, s, v, ph = self._gather_pend(*self._pend_arrays())
         self._pend = []
-        return arrs
+        win = ph // 3
+        last = int(win.max())
+        for w in range(last):
+            m = win == w
+            if m.any():
+                self._apply_window((c[m], s[m], v[m], ph[m] - 3 * w))
+        m = win == last
+        return c[m], s[m], v[m], ph[m] - 3 * last
 
     def _take_pending(self):
         """The deferred window as device tensors (c, s, v, phase), or None
@@ -341,12 +377,16 @@ class Engine:
         return tuple(self._dev(a) for a in arrs)
 
     def _flush_depths(self):
-        """Apply the deferred depth window on its own (before a fourth
-        phase would be needed, and for external pack readers); under a
-        mesh to every shard's replica."""
+        """Apply the deferred depth windows on their own (for external
+        pack readers: checkpoints, dense BA); under a mesh to every local
+        shard's replica."""
         pend = self._take_pending_host()
-        if pend is None:
-            return
+        if pend is not None:
+            self._apply_window(pend)
+
+    def _apply_window(self, pend):
+        """Apply one phased depth window (host arrays) on its own; under a
+        mesh to every local shard's replica."""
         t0 = time.time()
         if self.mesh is not None:
             if self._flush_fn is None:
@@ -387,28 +427,34 @@ class Engine:
 
     # -- mesh plumbing -----------------------------------------------------
     def _replicas(self) -> list:
-        """The per-shard z-buffer replicas; shard 0's is self.pack.depth.
+        """The per-shard z-buffer replicas (None for other processes'
+        shards); this process's first shard's is self.pack.depth.
         When the pack was replaced (checkpoint load, stream extension,
         dense BA) the other shards' replicas are copied from it anew."""
         r = self._depth_replicas
         d = self.pack.depth
-        if r is None or r[0] is not d:
-            r = [d] + [d.to(dev, copy=True) for dev in self.mesh.devices[1:]]
+        i0 = int(self.mesh.local_ids[0])
+        if r is None or r[i0] is not d:
+            r = [None if dev is None else d.to(dev, copy=True)
+                 for dev in self.mesh.devices]
+            r[i0] = d
             self._depth_replicas = r
         return r
 
     def _dev_shards(self, arrays) -> list:
         """Host arrays -> per-shard tuples of device tensors, uploaded once
-        per distinct device (read-only: shards on one device share them)."""
+        per distinct device (read-only: shards on one device share them);
+        None for other processes' shards."""
         per = {d: tuple(self._dev(a, d) for a in arrays)
                for d in self.mesh.distinct}
-        return [per[d] for d in self.mesh.devices]
+        return [None if d is None else per[d] for d in self.mesh.devices]
 
     def _mesh_dispatch(self, parts, gates: bool):
         """Enqueue one sharded optimize+gate dispatch: parts[i] is shard
         i's 6 host lane arrays, or None. The deferred window rides along
         to every replica. Returns per-shard device outputs (None where a
-        shard had no lanes)."""
+        shard had no lanes or belongs to another process: only this
+        process's shards are computed here)."""
         pend = self._take_pending_host()
         if pend is not None:
             pend = self._dev_shards(pend)
@@ -419,6 +465,7 @@ class Engine:
                                       np.asarray(p[3], np.int32),
                                       np.asarray(p[4], np.float32),
                                       np.asarray(p[5], np.float32)))
+            if d is not None else None
             for p, d in zip(parts, self.mesh.devices)]
         return self._sharded_gate_call(lanes, pend, gates)
 
@@ -432,16 +479,31 @@ class Engine:
         return self._sharded_gate_fn(lanes, self._replicas(), pend,
                                      with_gates=gates)
 
-    @staticmethod
-    def _host_out(out):
+    def _host_out(self, out):
         """A dispatch's device outputs -> its 6 host arrays; a mesh
         dispatch's per-shard outputs concatenate in shard order."""
         if isinstance(out, list):
-            parts = [tuple(t.cpu().numpy() for t in o) for o in out
-                     if o is not None]
+            parts = [p for p in self._fetch(out) if p is not None]
             return tuple(np.concatenate([p[j] for p in parts])
                          for j in range(6))
         return tuple(t.cpu().numpy() for t in out)
+
+    def _fetch(self, out: list) -> list:
+        """Blocking fetch of a mesh dispatch's per-shard outputs as host
+        tuples (None where a shard had no lanes). Over several processes
+        (the replicated mode) the other processes' shards are allgathered
+        in shard order, so every process reads the full results
+        (hpmvs_tpu/runtime/wavefront.py:100-113). The owned engine reads
+        its own shards only (_REPLICATED False)."""
+        host = [None if o is None else tuple(t.cpu().numpy() for t in o)
+                for o in out]
+        if not (self._mp and self._REPLICATED):
+            return host
+        b0 = pmesh.WIRE["bytes"]
+        host = pmesh._merge_shards(self.mesh, host)
+        self.stats["host_collectives"] += 1
+        self.stats["mp_gather_bytes"] += pmesh.WIRE["bytes"] - b0
+        return host
 
     def _extend_compute(self, centers, normals, scales, views, parent_c,
                         widths):
@@ -1507,6 +1569,10 @@ class Engine:
 
     def save_ply(self, path: str, binary=False, normal=True, scale=True,
                  visibility=True):
+        """Write the alive cloud; over several processes (every process
+        holds the same cloud) only process 0 writes."""
         c, n, col, s, v, nv = self.alive_arrays()
+        if self._mp and self.mesh.pid != 0:
+            return
         ply_io.write_ext_ply(path, c, n, col, s, v, nv, binary=binary,
                              normal=normal, scale=scale, visibility=visibility)

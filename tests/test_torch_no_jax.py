@@ -8,8 +8,10 @@ imports the modules of the single-device system (eval, export,
 checkpoint, streaming, bundle adjustment), round-trips a checkpoint,
 extends a stream by one chunk and solves a tiny bundle adjustment; then
 imports the mesh, image subsets and spatial engine and runs one priority
-step of a 2-shard spatial engine with image subsets; neither jax nor
-hpmvs_tpu may appear in sys.modules afterwards."""
+step of a 2-shard spatial engine with image subsets; then brings up a
+one-process group (init_distributed) and runs one priority step of the
+owned engine (runtime/owned.py) over 2 shards; neither jax nor hpmvs_tpu
+may appear in sys.modules afterwards."""
 
 import os
 import subprocess
@@ -90,6 +92,20 @@ pmin = min(sp.queue)
 assert sp.process_priority_step(pmin)
 assert sp.n_alive() > 0 and sp.stats["subset_rebuilds"] >= 1
 assert sp.stats["slab_miss"] == 0
+
+import socket
+from hpmvs_tpu_torch.runtime.owned import OwnedSpatialEngine
+sock = socket.socket()
+sock.bind(("127.0.0.1", 0))
+port = sock.getsockname()[1]
+sock.close()
+assert pmesh.init_distributed(f"tcp://127.0.0.1:{port}", 1, 0) == 1
+ow = OwnedSpatialEngine(ps.model, opt, images=ps.images,
+                        mesh=pmesh.make_mesh(["cpu"] * 2))
+ow.seed()
+assert ow.process_priority_step(ow._agree_pmin(10 ** 9))
+assert ow.n_alive() > 0 and ow.stats["host_collectives"] > 0
+torch.distributed.destroy_process_group()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "hpmvs_tpu"))
 print("BAD", bad)
@@ -100,6 +116,8 @@ def test_port_imports_no_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        env.pop(k, None)
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=root, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]

@@ -24,7 +24,11 @@ same cut to 30 cameras and 120 points, the extent scaled by sqrt(30/150)
 as bench/stress_study.py scales it; "plane200", tests/test_spatial.py's
 plane (7 cameras x 512 px, 200 points, START_LEVEL=2, MAXLEVEL=4,
 COVIS_MIN_POINTS=10, MAX_TREE_LEVEL=8, WAVE_LOOKAHEAD=False unless
---wave_depth or the switches say otherwise).
+--wave_depth or the switches say otherwise); "tiny", the completed run of
+the multi-process tests (tests/test_multihost.py, tests/
+test_torch_multihost.py: 4 cameras x 96 px, 24 points, START_LEVEL=1,
+MAXLEVEL=3, MAX_VIEWS=6, COVIS_MIN_POINTS=10, LM_ITERS=4,
+MAX_TREE_LEVEL=8).
 
 --shards N runs both engines over an N-shard mesh: the JAX engine on N
 virtual CPU devices (XLA's --xla_force_host_platform_device_count, set
@@ -32,12 +36,16 @@ before jax is imported), the port (--port) on N CPU shards
 (hpmvs_tpu_torch.parallel.mesh.make_mesh(["cpu"] * N)). --spatial runs the
 spatial engine (Morton blocks, halo migration) over that mesh and
 --image_subsets its per-shard image slabs; the output then carries the
-engine's migration and slab counters.
+engine's migration, slab and host-collective counters (and always the
+frontier generations, "waves"). --owned runs the owned engine
+(runtime/owned.py's OwnedSpatialEngine) at one process instead of the
+spatial engine: its root cube is pinned to the SfM points' cube, which a
+run over several processes shares.
 
     JAX_PLATFORMS=cpu python tools/plane_reference.py FAST_SETREF=False \\
         LM_EXACT_J=False [--wave_depth N] [--no_lookahead] [--port] [--kernel]
-        [--scene plane|small|facade|ring|ring30|plane200]
-        [--shards N [--spatial [--image_subsets]]]
+        [--scene plane|small|facade|ring|ring30|plane200|tiny]
+        [--shards N [--spatial [--image_subsets] [--owned]]]
 
 On the CPU the JAX engine refines with its plain XLA refiner
 (optimizer._optimize_patch), not with its GN kernel: with LM_EXACT_J=False
@@ -73,6 +81,9 @@ SCENES = {
     "plane200": (dict(n_cams=7, imgsize=512, n_points=200, seed=0),
                  dict(START_LEVEL=2, MAXLEVEL=4, COVIS_MIN_POINTS=10,
                       MAX_TREE_LEVEL=8)),
+    "tiny": (dict(n_cams=4, imgsize=96, n_points=24, seed=0),
+             dict(START_LEVEL=1, MAXLEVEL=3, MAX_VIEWS=6,
+                  COVIS_MIN_POINTS=10, LM_ITERS=4, MAX_TREE_LEVEL=8)),
     "ring30": (dict(n_cams=30, imgsize=128, n_points=120,
                     extent=8.0 * (30 / 150) ** 0.5, seed=0),
                dict(START_LEVEL=2, MAX_VIEWS=9, COVIS_MIN_POINTS=8)),
@@ -87,15 +98,34 @@ SPATIAL_STATS = ("migrated", "halo_arrivals", "migrated_inserted",
                  "block_work_lanes", "block_balance_den", "rebalances",
                  "subset_rebuilds", "subset_rows_per_block",
                  "subset_rows_replicated", "subset_cams_max",
-                 "subset_cams_mean", "slab_miss")
+                 "subset_cams_mean", "slab_miss", "host_collectives")
 
 
 def _run(pipeline_mod, options_cls, ps, dist, base, switches, out, gsd=None,
-         **kw):
+         owned=False, **kw):
     opt = dataclasses.replace(options_cls(), **base, **switches,
                               OUTFOLDER=out)
     t = time.time()
-    eng = pipeline_mod.run(ps.model, opt, images=ps.images, **kw)
+    if owned:
+        # pipeline.run picks the owned engine only under several
+        # processes: hand it the owned engine as its spatial one
+        import importlib
+        pkg = pipeline_mod.__name__.split(".")[0]
+        sp = importlib.import_module(pkg + ".runtime.spatial")
+        saved = sp.SpatialEngine
+        sp.SpatialEngine = importlib.import_module(
+            pkg + ".runtime.owned").OwnedSpatialEngine
+    waves = [0]
+
+    def count(engine):
+        waves[0] += 1
+
+    try:
+        eng = pipeline_mod.run(ps.model, opt, images=ps.images,
+                               wave_hook=count, **kw)
+    finally:
+        if owned:
+            sp.SpatialEngine = saved
     wall = time.time() - t
     d = dist(eng.alive_arrays()[0])
     st = eng.stats
@@ -106,7 +136,8 @@ def _run(pipeline_mod, options_cls, ps, dist, base, switches, out, gsd=None,
     return dict(alive=int(eng.n_alive()),
                 frac_within_002=float((d < 0.02).mean()), **extra,
                 patches_optimized=int(st["patches_optimized"]),
-                wall_s=wall, hist=[int(x) for x in eng.tree.histogram()],
+                waves=waves[0], wall_s=wall,
+                hist=[int(x) for x in eng.tree.histogram()],
                 **{k: int(st[k]) for k in WAVE_STATS},
                 deep_fb=[int(st[k]) for k in ("deep_fb_overflow",
                                               "deep_fb_mismatch",
@@ -133,9 +164,13 @@ def main(argv=None):
                     help="the spatial engine over the --shards mesh")
     ap.add_argument("--image_subsets", action="store_true",
                     help="with --spatial: per-shard image slabs")
+    ap.add_argument("--owned", action="store_true",
+                    help="with --spatial: the owned engine at one process")
     args = ap.parse_args(argv)
     if args.spatial and args.shards < 1:
         ap.error("--spatial needs --shards")
+    if args.owned and not args.spatial:
+        ap.error("--owned needs --spatial")
     if args.shards:
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
@@ -170,7 +205,7 @@ def main(argv=None):
         from hpmvs_tpu.parallel import mesh as jmesh
         mesh_kw = dict(mesh=jmesh.make_mesh(args.shards),
                        spatial=args.spatial,
-                       image_subsets=args.image_subsets)
+                       image_subsets=args.image_subsets, owned=args.owned)
     scene_kw, base = SCENES[args.scene]
     gsd = None
     if args.scene == "facade":
@@ -190,6 +225,7 @@ def main(argv=None):
     tmp = tempfile.mkdtemp(prefix="plane_reference_")
     res = {"scene": args.scene, "switches": switches, "shards": args.shards,
            "spatial": args.spatial, "image_subsets": args.image_subsets,
+           "owned": args.owned,
            "jax_kernel_interpret" if args.kernel else "jax_cpu": _run(
         jpipe, JOptions, ps, dist, base, switches, os.path.join(tmp, "jax"),
         gsd=gsd, **(mesh_kw or dict(mesh=None)))}
