@@ -31,13 +31,15 @@ import logging
 import os
 import sys
 
+from hpmvs_tpu_torch import trace
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.runtime import pipeline
 
 def _profile(folder: str):
     """torch.profiler over the main loop (CPU, and CUDA activity on a GPU),
     written to `folder` as a Chrome trace: the counterpart of the JAX CLI's
-    jax.profiler trace."""
+    jax.profiler trace. The port's spans (trace.py) show in it as
+    record_function ranges above the kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(folder, exist_ok=True)
@@ -151,18 +153,21 @@ def main(argv=None) -> int:
 
     prof = (_profile(args.profile) if args.profile
             else contextlib.nullcontext())
-    with prof:
-        engine = pipeline.run_nvm_file(args.nvm, opt,
-                                       more_output=args.more_output,
-                                       light_output=args.light_output,
-                                       bundle_adjust=args.ba,
-                                       snapshot_hook=snapshot_hook,
-                                       resume=args.resume,
-                                       ba_dense=args.ba_dense,
-                                       ba_dense_every=args.ba_dense_every,
-                                       spatial=args.spatial,
-                                       image_subsets=args.image_subsets,
-                                       device=args.device)
+    if args.profile:
+        trace.enable(annotate=True)
+    try:
+        with prof:
+            engine = pipeline.run_nvm_file(
+                args.nvm, opt, more_output=args.more_output,
+                light_output=args.light_output, bundle_adjust=args.ba,
+                snapshot_hook=snapshot_hook, resume=args.resume,
+                ba_dense=args.ba_dense, ba_dense_every=args.ba_dense_every,
+                spatial=args.spatial, image_subsets=args.image_subsets,
+                device=args.device)
+    finally:
+        if args.profile:
+            trace.disable()
+            trace.reset()
     logging.info("final patches: %d", engine.n_alive())
     return 0
 

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hpmvs_tpu_torch import resolve_device
+from hpmvs_tpu_torch import resolve_device, trace
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.geom import camera as cam_ops
 
@@ -102,24 +102,26 @@ def apply_phased_updates(pack: DepthPack, cams, centers, scales, views,
     (reset-to-MAX-if-equal, Scene.cpp:369-379), then phase 2 adds. Phase runs
     reproduce the sequential add*/sub*/add* order the engine deferred;
     entries project once (idx/d shared across phases)."""
-    idx, d, valid = _patch_view_cells(pack, cams, centers, scales, views,
-                                      subsample)
-    idx = idx.reshape(-1).long()
-    d = d.reshape(-1)
-    K = views.shape[1]
-    # (expand, not repeat_interleave: its output size can cost a host sync)
-    ph = phase[:, None].expand(-1, K).reshape(-1)
-    valid = valid.reshape(-1)
-    depth = pack.depth
-    inf = torch.full_like(d, float("inf"))
-    depth.scatter_reduce_(0, idx, torch.where(valid & (ph == 0), d, inf),
-                          "amin")
-    hit = valid & (ph == 1) & (depth[idx] == d)
-    depth.scatter_reduce_(0, torch.where(hit, idx, torch.zeros_like(idx)),
-                          torch.where(hit, torch.full_like(d, MAX_DEPTH), -inf),
-                          "amax")
-    depth.scatter_reduce_(0, idx, torch.where(valid & (ph == 2), d, inf),
-                          "amin")
+    with trace.span("depth.updates"):
+        idx, d, valid = _patch_view_cells(pack, cams, centers, scales, views,
+                                          subsample)
+        idx = idx.reshape(-1).long()
+        d = d.reshape(-1)
+        K = views.shape[1]
+        # (expand, not repeat_interleave: its output size can cost a host
+        # sync)
+        ph = phase[:, None].expand(-1, K).reshape(-1)
+        valid = valid.reshape(-1)
+        depth = pack.depth
+        inf = torch.full_like(d, float("inf"))
+        depth.scatter_reduce_(0, idx, torch.where(valid & (ph == 0), d, inf),
+                              "amin")
+        hit = valid & (ph == 1) & (depth[idx] == d)
+        depth.scatter_reduce_(0, torch.where(hit, idx, torch.zeros_like(idx)),
+                              torch.where(hit, torch.full_like(d, MAX_DEPTH),
+                                          -inf), "amax")
+        depth.scatter_reduce_(0, idx, torch.where(valid & (ph == 2), d, inf),
+                              "amin")
     return pack
 
 

@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from hpmvs_tpu_torch import resolve_device
+from hpmvs_tpu_torch import resolve_device, trace
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.geom import camera as cam_ops
 from hpmvs_tpu_torch.geom.triangulation import triangulate_midpoint
@@ -88,12 +88,18 @@ def build_scene(model: nvm_io.NvmModel, opt: Options,
     (parallel/subsets.py). The small row and dim tables still go to
     `device`."""
     device = resolve_device(device)
-    if images is None:
-        imgs = pyr.load_scene_images(model.cameras, opt.n_levels)
-    else:
-        pyramids = [pyr.build_pyramid(im, opt.n_levels) for im in images]
-        imgs = pyr.pack_pyramids(pyramids)
+    with trace.span("load.images"):
+        if images is None:
+            imgs = pyr.load_scene_images(model.cameras, opt.n_levels)
+        else:
+            pyramids = [pyr.build_pyramid(im, opt.n_levels) for im in images]
+            imgs = pyr.pack_pyramids(pyramids)
+    with trace.span("load.scene"):
+        return _assemble(model, opt, imgs, visdata_path, device, host_pack)
 
+
+def _assemble(model, opt, imgs, visdata_path, device, host_pack) -> Scene:
+    """Cameras, covisibility and the device context around packed images."""
     widths = [int(imgs.width[ci, 0]) for ci in range(imgs.n_cameras)]
     heights = [int(imgs.height[ci, 0]) for ci in range(imgs.n_cameras)]
     cams = cam_ops.build_cameras(model.cameras, widths, heights, opt.MAXLEVEL,

@@ -35,6 +35,7 @@ import dataclasses
 
 import torch
 
+from hpmvs_tpu_torch import trace
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.geom import camera as cam_ops
 from hpmvs_tpu_torch.image.pyramid import ImagePack
@@ -855,19 +856,20 @@ def _optimize_all(ctx, opt: Options, center, normal, scale, views):
     pipelines around the refiner (the GN kernel pads to its 128-patch block
     itself, on every device). Returns (center, normal, scale, views, ok,
     color, resid)."""
-    if _use_batched_stages(opt):
-        center, normal, views, ok, ws = _run_pre_b(ctx, opt, center, normal,
-                                                   scale, views)
+    batched = _use_batched_stages(opt)
+    with trace.span("opt.pre"):
+        pre = _run_pre_b if batched else _run_pre
+        center, normal, views, ok, ws = pre(ctx, opt, center, normal, scale,
+                                            views)
+    with trace.span("opt.refine"):
         center, normal, ok, resid = _refine(ctx, opt, center, normal, scale,
                                             views, ok, ws)
-        out = _run_post_b(ctx, opt, center, normal, scale, views, ok,
-                          ws_pre=ws)
-    else:
-        center, normal, views, ok, ws = _run_pre(ctx, opt, center, normal,
-                                                 scale, views)
-        center, normal, ok, resid = _refine(ctx, opt, center, normal, scale,
-                                            views, ok, ws)
-        out = _run_post(ctx, opt, center, normal, scale, views, ok)
+    with trace.span("opt.post"):
+        if batched:
+            out = _run_post_b(ctx, opt, center, normal, scale, views, ok,
+                              ws_pre=ws)
+        else:
+            out = _run_post(ctx, opt, center, normal, scale, views, ok)
     return out + (resid,)
 
 
@@ -923,6 +925,24 @@ def optimize_and_gate(ctx: SceneCtx, pack, opt: Options, n_images: int,
     g = g & (torch.linalg.vector_norm(oc - parent_c, dim=1)
              < widths * opt.EXTEND_DRIFT)
 
+    with trace.span("depth.gates"):
+        dt, vb, pf = _depth_gates(ctx, pack, opt, n_images, oc, on, os_, ov,
+                                  pack_layout, gate_imgs)
+    nv = torch.sum(ov >= 0, dim=1)
+    g = g & (dt >= opt.MIN_IMAGES_PER_PATCH)
+    g = g & (vb < opt.MIN_IMAGES_PER_PATCH)
+    g = g & ((pf >= opt.MIN_IMAGES_PER_PATCH - 1)
+             & (pf / torch.clamp(nv, min=1) > 0.75))
+    ok = ok & (g | ~gate_on)
+    return oc, on, os_, ov, ok, col
+
+
+def _depth_gates(ctx, pack, opt: Options, n_images: int, oc, on, os_, ov,
+                 pack_layout, gate_imgs):
+    """The three z-buffer gates of extend: depthTests, viewBlockTest and
+    pixelFreeTests per lane (depth counts, before their thresholds)."""
+    from hpmvs_tpu_torch.core import depth as depth_mod
+
     m = opt.DEPTH_TEST_FACTOR
     # collapsed full-depth buffer: the pyramid min computed ONCE per call, so
     # the depth and viewBlock tests read 1 cell per (lane, view, neighbour)
@@ -941,10 +961,4 @@ def optimize_and_gate(ctx: SceneCtx, pack, opt: Options, n_images: int,
     vb = depth_mod.view_block_test(pack, ctx.cams, imgs, opt, oc, on, os_, m,
                                    n_images, full0=full0, pool3=pool3)
     pf = depth_mod.pixel_free_tests(pack, ctx.cams, imgs, opt, oc, os_, ov)
-    nv = torch.sum(ov >= 0, dim=1)
-    g = g & (dt >= opt.MIN_IMAGES_PER_PATCH)
-    g = g & (vb < opt.MIN_IMAGES_PER_PATCH)
-    g = g & ((pf >= opt.MIN_IMAGES_PER_PATCH - 1)
-             & (pf / torch.clamp(nv, min=1) > 0.75))
-    ok = ok & (g | ~gate_on)
-    return oc, on, os_, ov, ok, col
+    return dt, vb, pf

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from hpmvs_tpu_torch import trace
 from hpmvs_tpu_torch.io import ply as ply_io
 from hpmvs_tpu_torch.parallel import mesh as pmesh
 from hpmvs_tpu_torch.runtime.spatial import SpatialEngine
@@ -219,8 +220,9 @@ class OwnedSpatialEngine(SpatialEngine):
     def save_ply(self, path: str, binary=False, normal=True, scale=True,
                  visibility=True):
         """Gather the global cloud; only process 0 writes."""
-        c, n, col, s, v, nv = self.alive_arrays()
-        if self.pid == 0:
-            ply_io.write_ext_ply(path, c, n, col, s, v, nv, binary=binary,
-                                 normal=normal, scale=scale,
-                                 visibility=visibility)
+        with trace.span("io.save_ply"):
+            c, n, col, s, v, nv = self.alive_arrays()
+            if self.pid == 0:
+                ply_io.write_ext_ply(path, c, n, col, s, v, nv,
+                                     binary=binary, normal=normal,
+                                     scale=scale, visibility=visibility)

@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from hpmvs_tpu_torch import resolve_device
+from hpmvs_tpu_torch import resolve_device, trace
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.io import nvm as nvm_io
 from hpmvs_tpu_torch.runtime.wavefront import Engine
@@ -31,6 +31,7 @@ from hpmvs_tpu_torch.runtime.wavefront import Engine
 log = logging.getLogger("hpmvs_tpu_torch")
 
 
+@trace.in_job
 def run(model: nvm_io.NvmModel, opt: Options, images=None,
         more_output: bool = False, light_output: int = 0,
         snapshot_hook=None, wave_hook=None,
@@ -78,7 +79,10 @@ def run(model: nvm_io.NvmModel, opt: Options, images=None,
     the cameras whose frusta see its blocks (parallel/subsets.py).
 
     The JAX run's enable_compile_cache has no counterpart: PyTorch runs
-    eagerly and the CUDA kernels build once into build/ (kernels.py)."""
+    eagerly and the CUDA kernels build once into build/ (kernels.py).
+
+    With tracing on (hpmvs_tpu_torch/trace.py) the run is one `job` span,
+    unless run_nvm_file opened it."""
     from hpmvs_tpu_torch.parallel import mesh as pmesh
     if mesh is None or isinstance(mesh, str):
         device = resolve_device(device)
@@ -95,55 +99,56 @@ def run(model: nvm_io.NvmModel, opt: Options, images=None,
     if mesh is not None:
         device = mesh.first
     os.makedirs(opt.OUTFOLDER, exist_ok=True)
-    if bundle_adjust and model.n_points > 0:
-        from hpmvs_tpu_torch.parallel import ba
-        prob = ba.build_problem(model, device=device)
-        if mesh is not None and mesh.n_proc > 1:
-            # one solve over the process-spanning mesh: every process
-            # adopts the same bits (separate solves may differ on CUDA)
-            cam, pts, hist = ba.ba_solve_sharded(
-                mesh, ba.shard_problem(prob, mesh.size), len(model.cameras),
-                model.n_points, iters=6, cg_iters=40)
+    with trace.span("load"):
+        if bundle_adjust and model.n_points > 0:
+            from hpmvs_tpu_torch.parallel import ba
+            prob = ba.build_problem(model, device=device)
+            if mesh is not None and mesh.n_proc > 1:
+                # one solve over the process-spanning mesh: every process
+                # adopts the same bits (separate solves may differ on CUDA)
+                cam, pts, hist = ba.ba_solve_sharded(
+                    mesh, ba.shard_problem(prob, mesh.size),
+                    len(model.cameras), model.n_points, iters=6, cg_iters=40)
+            else:
+                cam, pts, hist = ba.ba_solve(prob, len(model.cameras),
+                                             model.n_points, iters=6,
+                                             cg_iters=40, device=device)
+            hist = hist.cpu().numpy()
+            log.info("bundle adjustment: reprojection RMS %.4f -> %.4f px",
+                     float(hist[0]), float(hist[-1]))
+            model = ba.apply_to_model(model, cam.cpu().numpy(),
+                                      pts.cpu().numpy())
+        # PMVS-style VISDATA debug dump, like the reference's always-written
+        # /tmp/testvis.dat (Scene.cpp:243,279) but into the output folder
+        cls, kw = Engine, {}
+        if spatial:
+            if mesh is None:
+                raise ValueError("spatial=True requires a device mesh")
+            if mesh.n_proc > 1:
+                # per-process scheduler ownership: host state partitioned by
+                # Morton range, patch records cross only as halo rows
+                from hpmvs_tpu_torch.runtime.owned import OwnedSpatialEngine
+                cls = OwnedSpatialEngine
+            else:
+                from hpmvs_tpu_torch.runtime.spatial import SpatialEngine
+                cls = SpatialEngine
+            kw = dict(image_subsets=image_subsets)
+        if mesh is not None:
+            kw["mesh"] = mesh
         else:
-            cam, pts, hist = ba.ba_solve(prob, len(model.cameras),
-                                         model.n_points, iters=6,
-                                         cg_iters=40, device=device)
-        hist = hist.cpu().numpy()
-        log.info("bundle adjustment: reprojection RMS %.4f -> %.4f px",
-                 float(hist[0]), float(hist[-1]))
-        model = ba.apply_to_model(model, cam.cpu().numpy(),
-                                  pts.cpu().numpy())
-    # PMVS-style VISDATA debug dump, like the reference's always-written
-    # /tmp/testvis.dat (Scene.cpp:243,279) but into the output folder
-    cls, kw = Engine, {}
-    if spatial:
-        if mesh is None:
-            raise ValueError("spatial=True requires a device mesh")
-        if mesh.n_proc > 1:
-            # per-process scheduler ownership: host state partitioned by
-            # Morton range, patch records cross only as halo rows
-            from hpmvs_tpu_torch.runtime.owned import OwnedSpatialEngine
-            cls = OwnedSpatialEngine
+            kw["device"] = device
+        # (process 0 writes it: every process computes the same file)
+        vis = (os.path.join(opt.OUTFOLDER, "testvis.dat")
+               if mesh is None or mesh.pid == 0 else None)
+        engine = cls(model, opt, images=images, visdata_path=vis, **kw)
+        engine.wave_hook = wave_hook
+        if resume:
+            from hpmvs_tpu_torch.runtime import checkpoint as ckpt
+            ckpt.load_checkpoint(engine, resume, device=device)
+            ckpt.requeue_from_tree(engine)
+            log.info("resumed %d patches from <%s>", engine.n_alive(), resume)
         else:
-            from hpmvs_tpu_torch.runtime.spatial import SpatialEngine
-            cls = SpatialEngine
-        kw = dict(image_subsets=image_subsets)
-    if mesh is not None:
-        kw["mesh"] = mesh
-    else:
-        kw["device"] = device
-    # (process 0 writes it: every process computes the same file)
-    vis = (os.path.join(opt.OUTFOLDER, "testvis.dat")
-           if mesh is None or mesh.pid == 0 else None)
-    engine = cls(model, opt, images=images, visdata_path=vis, **kw)
-    engine.wave_hook = wave_hook
-    if resume:
-        from hpmvs_tpu_torch.runtime import checkpoint as ckpt
-        ckpt.load_checkpoint(engine, resume, device=device)
-        ckpt.requeue_from_tree(engine)
-        log.info("resumed %d patches from <%s>", engine.n_alive(), resume)
-    else:
-        engine.seed()
+            engine.seed()
     if more_output:
         engine.save_ply(os.path.join(opt.OUTFOLDER, "patches-init.ply"))
 
@@ -165,7 +170,8 @@ def run(model: nvm_io.NvmModel, opt: Options, images=None,
             log.info("prio %d finished: %d patches alive", prio,
                      engine.n_alive())
         if snapshot_hook is not None:
-            snapshot_hook(engine, prio)
+            with trace.span("hook"):
+                snapshot_hook(engine, prio)
 
         if (ba_dense_every > 0 and prio % 10 == 9
                 and (prio // 10) % ba_dense_every == 0
@@ -245,8 +251,10 @@ def _local_devices(device: torch.device) -> list:
     return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
 
 
+@trace.in_job
 def run_nvm_file(path: str, opt: Options, **kw) -> Engine:
-    models = nvm_io.read_nvm(path)
+    with trace.span("load"), trace.span("load.nvm"):
+        models = nvm_io.read_nvm(path)
     if not models:
         raise ValueError(f"no models found in NVM file <{path}>")
     return run(models[0], opt, **kw)

@@ -46,10 +46,9 @@ host state by process instead.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 
+from hpmvs_tpu_torch import trace
 from hpmvs_tpu_torch.core.octree import LinearOctree, morton_ancestor, \
     morton_encode
 from hpmvs_tpu_torch.parallel import mesh as pmesh
@@ -578,34 +577,34 @@ class SpatialEngine(Engine):
         starts[1:] = np.cumsum(counts_l)
         gates = bool((arrays[5] > 0).any())
 
-        t0 = time.time()
-        devs = []
-        for r in range(rounds):
-            parts, idxs = [], [None] * self.n_shards
-            for s in range(self.n_shards):
-                a = starts[s] + r * lseg
-                b = min(starts[s] + (r + 1) * lseg, starts[s + 1])
-                if a >= b:
-                    parts.append(None)
-                    continue
-                idx = order[a:b]
-                idxs[s] = idx
-                parts.append(tuple(x[idx] for x in arrays))
-            devs.append((self._mesh_dispatch(parts, gates), idxs))
-            self.stats["dispatches"] += 1
-            self.stats["disp_extend"] += 1
-        # (an owned process may hold no lane of a dispatch it joins)
-        K = arrays[3].shape[1]
-        outs = [np.zeros((N, 3), np.float32), np.zeros((N, 3), np.float32),
-                np.zeros(N, np.float32), np.full((N, K), -1, np.int32),
-                np.zeros(N, bool), np.zeros((N, 3), np.float32)]
-        for dev, idxs in devs:
-            for idx, got in zip(idxs, self._fetch(dev)):
-                if idx is None:
-                    continue
-                for j in range(6):
-                    outs[j][idx] = got[j]
-        self.stats["t_device"] += time.time() - t0
+        with self._device_time():
+            devs = []
+            for r in range(rounds):
+                parts, idxs = [], [None] * self.n_shards
+                for s in range(self.n_shards):
+                    a = starts[s] + r * lseg
+                    b = min(starts[s] + (r + 1) * lseg, starts[s + 1])
+                    if a >= b:
+                        parts.append(None)
+                        continue
+                    idx = order[a:b]
+                    idxs[s] = idx
+                    parts.append(tuple(x[idx] for x in arrays))
+                devs.append((self._mesh_dispatch(parts, gates), idxs))
+                self.stats["dispatches"] += 1
+                self.stats["disp_extend"] += 1
+            # (an owned process may hold no lane of a dispatch it joins)
+            K = arrays[3].shape[1]
+            outs = [np.zeros((N, 3), np.float32),
+                    np.zeros((N, 3), np.float32), np.zeros(N, np.float32),
+                    np.full((N, K), -1, np.int32), np.zeros(N, bool),
+                    np.zeros((N, 3), np.float32)]
+            for dev, idxs in devs:
+                for idx, got in zip(idxs, self._fetch(dev)):
+                    if idx is None:
+                        continue
+                    for j in range(6):
+                        outs[j][idx] = got[j]
         if self.image_subsets:
             self._count_slab_misses()
         self.stats["block_work_lanes"] += N
@@ -719,67 +718,68 @@ class SpatialEngine(Engine):
         pair = self._agree_pair(pair_l)
         mine = self.mesh.local
         devs, cross = [], {}
-        t0 = time.time()
-        src_ids = np.arange(n)
-        for k in range(1, n):
-            dst_ids = (src_ids + k) % n
-            diag = np.where(mine, pair[src_ids, dst_ids], 0)
-            if diag.max() == 0:
-                continue
-            slots = int(diag.max())
-            # this process ships its own shards' rows
-            rows = np.nonzero((koff == k) & mine[src_sh[idx_all]])[0]
-            sb = src_sh[idx_all[rows]]
-            counts = np.bincount(sb, minlength=n)
-            starts = np.zeros(n + 1, np.int64)
-            starts[1:] = np.cumsum(counts)
-            order = np.argsort(sb, kind="stable")
-            lane = sb[order] * slots + (np.arange(len(rows))
-                                        - starts[sb[order]])
-            pay = np.zeros((n * slots, D), np.float32)
-            val = np.zeros((n * slots,), bool)
-            pay[lane] = payload_all[rows[order]]
-            val[lane] = True
-            # shard s ships rows [s*slots, (s+1)*slots): to a shard of this
-            # process by a device hop, to another process's in `cross`
-            hop = mine & mine[dst_ids]
-            for s_ in np.nonzero(mine & ~mine[dst_ids] & (diag > 0))[0]:
-                blk = slice(s_ * slots, (s_ + 1) * slots)
-                cross[(k, int(dst_ids[s_]))] = pay[blk][val[blk]]
-            if not hop.any():
-                continue
-            pay_s = [self._dev(pay[s_ * slots:(s_ + 1) * slots], d)
-                     if hop[s_] else None
-                     for s_, d in enumerate(self.mesh.devices)]
-            val_s = [self._dev(val[s_ * slots:(s_ + 1) * slots], d)
-                     if hop[s_] else None
-                     for s_, d in enumerate(self.mesh.devices)]
-            fn = pmesh.make_pairwise_halo(self.mesh, int(k))
-            devs.append((int(k), fn(pay_s, val_s)))
-            self.stats["halo_bytes_wire"] += int(hop.sum()) * slots * (
-                D * 4 + 1)
-        # arrivals per (hop, destination shard): host rows already valid
-        got = {}
-        for k, (p_out, v_out) in devs:
-            for d, (pp, vv) in enumerate(zip(p_out, v_out)):
-                if pp is not None:
-                    got[(k, d)] = pp.cpu().numpy()[vv.cpu().numpy()]
-        if self.mesh.n_proc > 1:
-            xbytes = sum(int(r.nbytes) for r in cross.values())
-            self.stats["halo_bytes_xproc"] += xbytes
-            self.stats["halo_bytes_wire"] += xbytes
-            for p, g in enumerate(pmesh.allgather_object(cross)):
-                if p != self.mesh.pid:
-                    got.update((kd, r) for kd, r in g.items() if mine[kd[1]])
-            self.stats["host_collectives"] += 1
-        lmask = self._shard_local_mask()
-        if (lmask & ~mine).any():
-            # the replicated engine inserts every shard's arrivals
-            for p, g in enumerate(pmesh.allgather_object(got)):
-                if p != self.mesh.pid:
-                    got.update(g)
-            self.stats["host_collectives"] += 1
-        self.stats["t_device"] += time.time() - t0
+        with self._device_time():
+            src_ids = np.arange(n)
+            for k in range(1, n):
+                dst_ids = (src_ids + k) % n
+                diag = np.where(mine, pair[src_ids, dst_ids], 0)
+                if diag.max() == 0:
+                    continue
+                slots = int(diag.max())
+                # this process ships its own shards' rows
+                rows = np.nonzero((koff == k) & mine[src_sh[idx_all]])[0]
+                sb = src_sh[idx_all[rows]]
+                counts = np.bincount(sb, minlength=n)
+                starts = np.zeros(n + 1, np.int64)
+                starts[1:] = np.cumsum(counts)
+                order = np.argsort(sb, kind="stable")
+                lane = sb[order] * slots + (np.arange(len(rows))
+                                            - starts[sb[order]])
+                pay = np.zeros((n * slots, D), np.float32)
+                val = np.zeros((n * slots,), bool)
+                pay[lane] = payload_all[rows[order]]
+                val[lane] = True
+                # shard s ships rows [s*slots, (s+1)*slots): to a shard of this
+                # process by a device hop, to another process's in `cross`
+                hop = mine & mine[dst_ids]
+                for s_ in np.nonzero(mine & ~mine[dst_ids] & (diag > 0))[0]:
+                    blk = slice(s_ * slots, (s_ + 1) * slots)
+                    cross[(k, int(dst_ids[s_]))] = pay[blk][val[blk]]
+                if not hop.any():
+                    continue
+                pay_s = [self._dev(pay[s_ * slots:(s_ + 1) * slots], d)
+                         if hop[s_] else None
+                         for s_, d in enumerate(self.mesh.devices)]
+                val_s = [self._dev(val[s_ * slots:(s_ + 1) * slots], d)
+                         if hop[s_] else None
+                         for s_, d in enumerate(self.mesh.devices)]
+                fn = pmesh.make_pairwise_halo(self.mesh, int(k))
+                devs.append((int(k), fn(pay_s, val_s)))
+                self.stats["halo_bytes_wire"] += int(hop.sum()) * slots * (
+                    D * 4 + 1)
+            # arrivals per (hop, destination shard): host rows already valid
+            got = {}
+            with trace.span("wait"):
+                for k, (p_out, v_out) in devs:
+                    for d, (pp, vv) in enumerate(zip(p_out, v_out)):
+                        if pp is not None:
+                            got[(k, d)] = pp.cpu().numpy()[vv.cpu().numpy()]
+            if self.mesh.n_proc > 1:
+                xbytes = sum(int(r.nbytes) for r in cross.values())
+                self.stats["halo_bytes_xproc"] += xbytes
+                self.stats["halo_bytes_wire"] += xbytes
+                for p, g in enumerate(pmesh.allgather_object(cross)):
+                    if p != self.mesh.pid:
+                        got.update((kd, r) for kd, r in g.items()
+                                   if mine[kd[1]])
+                self.stats["host_collectives"] += 1
+            lmask = self._shard_local_mask()
+            if (lmask & ~mine).any():
+                # the replicated engine inserts every shard's arrivals
+                for p, g in enumerate(pmesh.allgather_object(got)):
+                    if p != self.mesh.pid:
+                        got.update(g)
+                self.stats["host_collectives"] += 1
         self.stats["halo_rounds"] += 1
         self.stats["halo_hops"] += len(devs)
         self.stats["migrated"] += len(idx_all)

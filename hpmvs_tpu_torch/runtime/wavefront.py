@@ -69,6 +69,7 @@ the owned engine (runtime/owned.py) overrides them with host collectives.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -78,7 +79,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from hpmvs_tpu_torch import resolve_device
+from hpmvs_tpu_torch import resolve_device, trace
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.core import depth as depth_mod
 from hpmvs_tpu_torch.core import native
@@ -138,10 +139,11 @@ class Engine:
                                            visdata_path=visdata_path,
                                            device=self.device,
                                            host_pack=host_images)
-        self.pack = depth_mod.build_depth_pack(
-            self.scene.width_np, self.scene.height_np, opt.DEPTH_SUBSAMPLE,
-            device=self.device)
-        self.refresh_host_caches()
+        with trace.span("load.scene"):
+            self.pack = depth_mod.build_depth_pack(
+                self.scene.width_np, self.scene.height_np,
+                opt.DEPTH_SUBSAMPLE, device=self.device)
+            self.refresh_host_caches()
         self.patches = PatchStore(opt.MAX_VIEWS)
         self.tree: Optional[LinearOctree] = None
         # cell -> patch membership as intrusive linked arrays (head + nxt)
@@ -387,26 +389,36 @@ class Engine:
     def _apply_window(self, pend):
         """Apply one phased depth window (host arrays) on its own; under a
         mesh to every local shard's replica."""
-        t0 = time.time()
-        if self.mesh is not None:
-            if self._flush_fn is None:
-                self._flush_fn = pmesh.sharded_apply_depth_updates(
-                    self.mesh, self.scene.ctx.cams, self.pack,
-                    self.opt.DEPTH_SUBSAMPLE)
-            self._flush_fn(self._replicas(), *pend)
-        else:
-            depth_mod.apply_depth_updates(
-                self.pack, self.scene.ctx.cams,
-                *(self._dev(a) for a in pend),
-                subsample=self.opt.DEPTH_SUBSAMPLE)
-        self._sync()
-        self.stats["t_device"] += time.time() - t0
+        with self._device_time():
+            if self.mesh is not None:
+                if self._flush_fn is None:
+                    self._flush_fn = pmesh.sharded_apply_depth_updates(
+                        self.mesh, self.scene.ctx.cams, self.pack,
+                        self.opt.DEPTH_SUBSAMPLE)
+                self._flush_fn(self._replicas(), *pend)
+            else:
+                depth_mod.apply_depth_updates(
+                    self.pack, self.scene.ctx.cams,
+                    *(self._dev(a) for a in pend),
+                    subsample=self.opt.DEPTH_SUBSAMPLE)
+            self._sync()
         self.stats["dispatches"] += 1
         self.stats["disp_flush"] += 1
 
     # ------------------------------------------------------------------
     # device dispatch
     # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _device_time(self):
+        """Host time spent enqueueing device work or blocked on the device:
+        added to stats["t_device"] and recorded as a `dispatch` span, both
+        from the same two clock readings (its `wait` spans tell the
+        blocking apart)."""
+        c = trace.clocked("dispatch")
+        with c:
+            yield
+        self.stats["t_device"] += c.ns / 1e9
+
     def _dev(self, a, device=None):
         """Host array -> tensor on `device` (the engine's by default). To
         the GPU through pinned memory without blocking: a pageable copy
@@ -421,9 +433,10 @@ class Engine:
 
     def _sync(self):
         devs = [self.device] if self.mesh is None else self.mesh.distinct
-        for d in devs:
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
+        with trace.span("wait"):
+            for d in devs:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
 
     # -- mesh plumbing -----------------------------------------------------
     def _replicas(self) -> list:
@@ -486,7 +499,8 @@ class Engine:
             parts = [p for p in self._fetch(out) if p is not None]
             return tuple(np.concatenate([p[j] for p in parts])
                          for j in range(6))
-        return tuple(t.cpu().numpy() for t in out)
+        with trace.span("wait"):
+            return tuple(t.cpu().numpy() for t in out)
 
     def _fetch(self, out: list) -> list:
         """Blocking fetch of a mesh dispatch's per-shard outputs as host
@@ -495,8 +509,9 @@ class Engine:
         in shard order, so every process reads the full results
         (hpmvs_tpu/runtime/wavefront.py:100-113). The owned engine reads
         its own shards only (_REPLICATED False)."""
-        host = [None if o is None else tuple(t.cpu().numpy() for t in o)
-                for o in out]
+        with trace.span("wait"):
+            host = [None if o is None else tuple(t.cpu().numpy() for t in o)
+                    for o in out]
         if not (self._mp and self._REPLICATED):
             return host
         b0 = pmesh.WIRE["bytes"]
@@ -564,6 +579,10 @@ class Engine:
     # seeding (Scene::initPatches + main.cpp:127-139)
     # ------------------------------------------------------------------
     def seed(self):
+        with trace.span("load.seed"):
+            return self._seed()
+
+    def _seed(self):
         opt = self.opt
         c, n, s, v, orig = scene_mod.make_seed_patches(self.model, self.scene,
                                                        opt)
@@ -627,6 +646,10 @@ class Engine:
         """Drain every queue entry with priority <= prio
         (one OMP-parallel processQueue sweep in the reference,
         main.cpp:150-154)."""
+        with trace.span("step", prio):
+            return self._priority_step(prio)
+
+    def _priority_step(self, prio: int) -> bool:
         changed = False
         while True:
             pmin = self._agree_pmin(prio)
@@ -636,15 +659,14 @@ class Engine:
             if self._count_global(len(live)) == 0:
                 continue
             changed = True
-            t0 = time.time()
             self._process_cells(live, pmin)
-            self.stats[f"t_phase{pmin % 10}"] += time.time() - t0
             self.stats["cells_processed"] += len(live)
             # each inner iteration drains one frontier generation (a classic
             # wave or a consumed deep generation), so this fires every few
             # seconds even inside a long priority step
             if self.wave_hook is not None:
-                self.wave_hook(self)
+                with trace.span("hook"):
+                    self.wave_hook(self)
         return changed
 
     def _pop_live(self, pmin) -> np.ndarray:
@@ -669,7 +691,8 @@ class Engine:
         heads = self.cell_head[cids]
         multi = cids[self.patches.nxt[heads] >= 0]
         if len(multi):
-            self._filter_cells(multi)
+            with trace.span("cells.filter"):
+                self._filter_cells(multi)
 
         first_pid = self.cell_head[cids]
         expanded = self.patches.expanded[first_pid]
@@ -680,16 +703,20 @@ class Engine:
         # filter, regularize and remove are host-only
         ext = cids[~expanded]
         if self._count_global(len(ext)):
-            self._extend_cells(ext)
+            with trace.span("cells.extend"):
+                self._extend_cells(ext)
         reg = cids[expanded & (flat < 0)]
         if len(reg):
-            self._regularize_cells(reg)
+            with trace.span("cells.regularize"):
+                self._regularize_cells(reg)
         rem = cids[expanded & (flat > opt.FLATNESS_REMOVE)]
         if len(rem):
-            self._remove_cells(rem)
+            with trace.span("cells.remove"):
+                self._remove_cells(rem)
         bra = cids[expanded & (flat >= 0) & (flat <= opt.FLATNESS_REMOVE)]
         if self._count_global(len(bra)):
-            self._branch_cells(bra)
+            with trace.span("cells.branch"):
+                self._branch_cells(bra)
 
     # -- filter (CellProcessor::filter, :43-82) -------------------------
     def _filter_keepers(self, cids: np.ndarray):
@@ -841,9 +868,8 @@ class Engine:
         host routing of chunk i overlaps chunk i+1..'s device work."""
         for dev, a, b in self._spec_dispatch(centers, normals, scales, views,
                                              parent_c, widths):
-            t1 = time.time()
-            got = self._host_out(dev)
-            self.stats["t_device"] += time.time() - t1
+            with self._device_time():
+                got = self._host_out(dev)
             yield a, b, got
 
     def _lookahead_ok(self) -> bool:
@@ -876,20 +902,21 @@ class Engine:
         wave's, so the host waits for the device once per WAVE_DEPTH waves.
         Returns (DeepOut on the device, n_lanes)."""
         n = len(c_in)
-        t0 = time.time()
-        pend = self._take_pending()
-        lanes = [self._dev(a) for a in deepwave.pad_lanes(
-            (c_in, n_in, s_in, v_in, p_in, w_in), self._deep_bucket(n))]
-        root = np.concatenate([np.asarray(self.tree.center, np.float32),
-                               np.asarray([self.tree.width], np.float32)])
-        root = self._dev(root)
-        out = deepwave.optimize_and_gate_deep(
-            self.scene.ctx, self.pack, self.opt, self.scene.n_cameras,
-            deepwave.GateIn(*lanes), root[:3], root[3], pend=pend,
-            n_gens=int(self.opt.WAVE_DEPTH), pack_layout=self._pack_layout)
-        self.stats["dispatches"] += 1
-        self.stats["disp_deep"] += 1
-        self.stats["t_device"] += time.time() - t0
+        with self._device_time():
+            pend = self._take_pending()
+            lanes = [self._dev(a) for a in deepwave.pad_lanes(
+                (c_in, n_in, s_in, v_in, p_in, w_in), self._deep_bucket(n))]
+            root = np.concatenate([np.asarray(self.tree.center, np.float32),
+                                   np.asarray([self.tree.width],
+                                              np.float32)])
+            root = self._dev(root)
+            out = deepwave.optimize_and_gate_deep(
+                self.scene.ctx, self.pack, self.opt, self.scene.n_cameras,
+                deepwave.GateIn(*lanes), root[:3], root[3], pend=pend,
+                n_gens=int(self.opt.WAVE_DEPTH),
+                pack_layout=self._pack_layout)
+            self.stats["dispatches"] += 1
+            self.stats["disp_deep"] += 1
         return out, n
 
     def _deep_consume(self, spec, cids, pids):
@@ -910,10 +937,9 @@ class Engine:
             interval = time.time() - spec["t_dispatched"]
             dev_inside = self.stats["t_device"] - spec["t_dev_mark"]
             self.stats["t_host_overlapped"] += max(interval - dev_inside, 0.0)
-            t0 = time.time()
-            spec["outs"] = deepwave.to_host(spec["dev"])
+            with self._device_time(), trace.span("wait"):
+                spec["outs"] = deepwave.to_host(spec["dev"])
             spec["dev"] = None
-            self.stats["t_device"] += time.time() - t0
         W, B = spec["outs"].ok.shape
         DIRS = int(self.opt.EXTEND_DIRS)
         oc_f, on_f, os_f, ov_f, ok_f, col_f, cand_f, win_f = (
@@ -1033,24 +1059,22 @@ class Engine:
         inflate it."""
         cap = max(self.opt.BATCH, 16)
         n = len(c_in)
-        t0 = time.time()
         devs = []
-        for i in range(0, n, cap):
-            j = min(i + cap, n)
-            devs.append((self._dispatch_extend(
-                c_in[i:j], n_in[i:j], s_in[i:j], v_in[i:j], p_in[i:j],
-                w_in[i:j]), i, j))
-        if count:
-            self.stats["patches_optimized"] += n
-        self.stats["t_device"] += time.time() - t0
+        with self._device_time():
+            for i in range(0, n, cap):
+                j = min(i + cap, n)
+                devs.append((self._dispatch_extend(
+                    c_in[i:j], n_in[i:j], s_in[i:j], v_in[i:j], p_in[i:j],
+                    w_in[i:j]), i, j))
+            if count:
+                self.stats["patches_optimized"] += n
         return devs
 
     def _fetch_spec_chunks(self, devs):
         """Blocking fetch of _spec_dispatch chunks -> one wave's 6 host
         arrays."""
-        t0 = time.time()
-        outs = [self._host_out(dev) for dev, _, _ in devs]
-        self.stats["t_device"] += time.time() - t0
+        with self._device_time():
+            outs = [self._host_out(dev) for dev, _, _ in devs]
         if len(outs) == 1:
             return outs[0]
         return tuple(np.concatenate([o[j] for o in outs]) for j in range(6))
@@ -1571,8 +1595,10 @@ class Engine:
                  visibility=True):
         """Write the alive cloud; over several processes (every process
         holds the same cloud) only process 0 writes."""
-        c, n, col, s, v, nv = self.alive_arrays()
-        if self._mp and self.mesh.pid != 0:
-            return
-        ply_io.write_ext_ply(path, c, n, col, s, v, nv, binary=binary,
-                             normal=normal, scale=scale, visibility=visibility)
+        with trace.span("io.save_ply"):
+            c, n, col, s, v, nv = self.alive_arrays()
+            if self._mp and self.mesh.pid != 0:
+                return
+            ply_io.write_ext_ply(path, c, n, col, s, v, nv, binary=binary,
+                                 normal=normal, scale=scale,
+                                 visibility=visibility)

@@ -2,10 +2,10 @@
 and a tiny plane (tests/test_deepwave.py's Options; 4 cameras x 128 px, 30
 points, MAX_TREE_LEVEL 5). One run takes --checkpoint_every, --ba (bundle
 adjustment before seeding), --ba_dense_every (inside the loop) and
---profile (a torch.profiler Chrome trace); a second --resume's from its
-checkpoint with --ba_dense (after the loop). Each writes patches-final.ply
-with >= 0.95 of its patches within 0.02 of the plane, the second within
-10% of the first's count. --platform is refused, naming --device;
+--profile (a torch.profiler Chrome trace, the port's spans in it); a
+second --resume's from its checkpoint with --ba_dense (after the loop).
+Each writes patches-final.ply with >= 0.95 of its patches within 0.02 of
+the plane, the second within 10% of the first's count. --platform is refused, naming --device;
 --spatial and --image_subsets behave as the JAX CLI's on one device:
 --spatial fails for want of a device mesh, --image_subsets alone is
 ignored (it needs --spatial) and the run completes."""
@@ -76,6 +76,17 @@ def test_profile_writes_a_chrome_trace(first_run):
     with open(out / "prof" / "trace.json") as fh:
         trace = json.load(fh)
     assert len(trace["traceEvents"]) > 100
+
+
+def test_profile_trace_shows_the_spans(first_run):
+    """--profile turns the span recorder on with record_function ranges,
+    so the Chrome trace names the port's layers above the kernels."""
+    out, _ = first_run
+    with open(out / "prof" / "trace.json") as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    assert {"job", "load", "load.nvm", "load.images", "load.seed", "step",
+            "cells.extend", "dispatch", "opt.refine", "depth.gates", "wait",
+            "io.save_ply", "hook"} <= names
 
 
 @pytest.mark.parametrize("flag,outcome,message", [
