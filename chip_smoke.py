@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
   2. build    -- nvcc builds hpmvs_tpu_torch/csrc into build/ (one nvcc per
                  source, in parallel); the ptxas report of every kernel
                  (registers, static shared memory, stack, spills); then g++
-                 builds the native octree library (native/octree_core.cpp).
+                 builds the native library (native/octree_core.cpp and
+                 the PLY formatter native/ply_ascii.cpp).
   3. kernels  -- each kernel (fetch, score, permute, gn, gn_fd) and the GN
                  kernel's debug_j output against its plain PyTorch twin on
                  the card at the main path's shapes (B=2048, K=8 pre stage,

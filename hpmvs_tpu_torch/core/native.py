@@ -1,4 +1,5 @@
-"""ctypes binding for the native octree query library (native/octree_core.cpp).
+"""ctypes binding for the port's native host library: the octree queries
+(native/octree_core.cpp) and the ASCII PLY formatter (native/ply_ascii.cpp).
 
 The reference's octree and scheduler bookkeeping is C++ (doctree.h,
 CellProcessor.cpp); native/octree_core.cpp is the same hot path for the
@@ -6,10 +7,13 @@ linear Morton octree of core/octree.py: batched Morton keys, the
 derived-structure queries (structure level, containing cell, exact lookup)
 and the seed conflict push-down. Its answers are integers, bit-identical to
 the numpy path, which stays in core/octree.py as the library's twin.
+native/ply_ascii.cpp formats the PLY writer's text (io/ply.py) byte for
+byte as the Python writer's f-strings did.
 
-The library is compiled from the source at first use with
-`g++ -O3 -shared -fPIC` into the git-ignored build/ directory beside
-build/'s CUDA kernels, under a name that hashes the source and the flags;
+The library is compiled from both sources at first use (the engine's
+constructor) with `g++ -O3 -shared -fPIC` into the git-ignored build/
+directory beside build/'s CUDA kernels, under a name that hashes the
+sources and the flags;
 concurrent builds (test workers) write to their own temporary names and
 rename into place, so no process loads a half-written library. A failed
 build raises with the compiler's output. The prebuilt native/*.so is never
@@ -29,6 +33,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent.parent
 SOURCE = ROOT / "native" / "octree_core.cpp"
+PLY_SOURCE = ROOT / "native" / "ply_ascii.cpp"
 BUILD = ROOT / "build"
 FLAGS = ["-O3", "-shared", "-fPIC"]
 
@@ -39,6 +44,9 @@ SORT_THRESHOLD = 4096
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+_f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _i64 = ctypes.c_int64
 _f64 = ctypes.c_double
 
@@ -49,23 +57,27 @@ class _Lib:
 
 
 def build(build_dir: Path = BUILD) -> Path:
-    """Compile native/octree_core.cpp into build_dir (skipped when a library
-    built from the same source and flags is there). Returns its path."""
-    digest = hashlib.sha1(SOURCE.read_bytes())
+    """Compile native/octree_core.cpp and native/ply_ascii.cpp into one
+    library in build_dir (skipped when a library built from the same
+    sources and flags is there). Returns its path."""
+    sources = (SOURCE, PLY_SOURCE)
+    digest = hashlib.sha1()
+    for src in sources:
+        digest.update(src.read_bytes())
     digest.update(repr(FLAGS).encode())
-    out = Path(build_dir) / f"libhpmvs_octree-{digest.hexdigest()[:12]}.so"
+    out = Path(build_dir) / f"libhpmvs_native-{digest.hexdigest()[:12]}.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("native octree library: g++ not found")
-    res = subprocess.run([cxx, *FLAGS, str(SOURCE), "-o", str(tmp)],
+        raise RuntimeError("native library: g++ not found")
+    res = subprocess.run([cxx, *FLAGS, *map(str, sources), "-o", str(tmp)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"native octree library: the build failed "
+        raise RuntimeError(f"native library: the build failed "
                            f"(exit {res.returncode}):\n{res.stdout}"
                            f"{res.stderr}")
     os.replace(tmp, out)
@@ -96,6 +108,12 @@ def lib(path=None) -> ctypes.CDLL:
                  "structure_level_sorted", "containing_cell",
                  "containing_cell_sorted", "lookup_cells"):
         getattr(h, name).restype = None
+    h.ply_format_vertices.argtypes = [_i64, _i64, _f32p, _f32p, _u8p, _f32p,
+                                      _i64, _i64, _u8p]
+    h.ply_format_visibility.argtypes = [_i64, _i64, _i64, _i32p, _i32p,
+                                        _u8p]
+    h.ply_format_vertices.restype = _i64
+    h.ply_format_visibility.restype = _i64
     if path is None:
         _Lib.handle, _Lib.path = h, p
     return h

@@ -5,7 +5,11 @@ Equivalent of the reference DynOctTree::toExtPly (include/hpmvs/doctree.h:526-62
 per-point camera-visibility list element -- in ASCII or native-endian binary.
 
 Operates on the engine's patch structure-of-arrays (numpy on host), so export
-is a single vectorized dump instead of a tree walk.
+is a single vectorized dump instead of a tree walk. The ASCII text comes from
+the native formatter (native/ply_ascii.cpp, through core/native.py): each
+float32 as repr(float(x)), up to 17 digits, byte for byte what the JAX
+package's writer prints; the binary body is one packed record array and one
+uint32 array of the visibility runs.
 """
 
 from __future__ import annotations
@@ -13,6 +17,11 @@ from __future__ import annotations
 import sys
 
 import numpy as np
+
+from ..core import native
+
+# rows a native formatter call writes into the reused buffer
+BLOCK = 65536
 
 
 def write_ext_ply(
@@ -50,44 +59,91 @@ def write_ext_ply(
         hdr.append("property list uint uint visible_cameras")
     hdr.append("end_header")
 
-    col_u8 = np.clip(np.asarray(colors), 0, 255).astype(np.uint8)
-    centers = np.asarray(centers, dtype=np.float32)
-    normals = np.asarray(normals, dtype=np.float32)
-    scales = np.asarray(scales, dtype=np.float32)
+    col_u8 = np.ascontiguousarray(
+        np.clip(np.asarray(colors), 0, 255).astype(np.uint8))
+    centers = np.ascontiguousarray(centers, dtype=np.float32)
+    normals = np.ascontiguousarray(normals, dtype=np.float32)
+    scales = np.ascontiguousarray(scales, dtype=np.float32)
+    # the native formatter reads these shapes through raw pointers
+    want = [("centers", centers, (n, 3)), ("colors", col_u8, (n, 3))]
+    if normal:
+        want.append(("normals", normals, (n, 3)))
+    if scale:
+        want.append(("scales", scales, (n,)))
+    if visibility:
+        views = np.ascontiguousarray(views, dtype=np.int32)
+        nviews = np.ascontiguousarray(nviews, dtype=np.int32)
+        want += [("views", views, (n, views.shape[-1])),
+                 ("nviews", nviews, (n,))]
+    for name, a, shape in want:
+        if a.shape != shape:
+            raise ValueError(f"write_ext_ply: {name} has shape {a.shape}, "
+                             f"not {shape}")
+    if visibility and n and (nviews.min() < 0
+                             or nviews.max() > views.shape[1]):
+        raise ValueError("write_ext_ply: nviews outside 0..K")
 
     with open(path, "wb" if binary else "w") as fh:
         header_text = "\n".join(hdr) + "\n"
         fh.write(header_text.encode() if binary else header_text)
-
         if binary:
-            for ii in range(n):
-                fh.write(centers[ii].tobytes())
-                if normal:
-                    fh.write(normals[ii].tobytes())
-                fh.write(col_u8[ii].tobytes())
-                if scale:
-                    fh.write(scales[ii].tobytes())
-            if visibility:
-                for ii in range(n):
-                    k = int(nviews[ii])
-                    fh.write(np.uint32(k).tobytes())
-                    fh.write(views[ii, :k].astype(np.uint32).tobytes())
+            _write_binary(fh, centers, normals, col_u8, scales, views,
+                          nviews, normal, scale, visibility)
         else:
-            lines = []
-            for ii in range(n):
-                parts = [f"{centers[ii,0]} {centers[ii,1]} {centers[ii,2]}"]
-                if normal:
-                    parts.append(f"{normals[ii,0]} {normals[ii,1]} {normals[ii,2]}")
-                parts.append(f"{col_u8[ii,0]} {col_u8[ii,1]} {col_u8[ii,2]}")
-                if scale:
-                    parts.append(f"{scales[ii]}")
-                lines.append(" ".join(parts) + " ")
-            if visibility:
-                for ii in range(n):
-                    k = int(nviews[ii])
-                    vs = " ".join(str(int(v)) for v in views[ii, :k])
-                    lines.append(f"{k} {vs} ")
-            fh.write("\n".join(lines) + "\n")
+            _write_ascii(fh, centers, normals, col_u8, scales, views,
+                         nviews, normal, scale, visibility)
+
+
+def _write_binary(fh, centers, normals, col_u8, scales, views, nviews,
+                  normal, scale, visibility):
+    """One packed vertex record per row, then one uint32 run of
+    [k, views[:k]...] per row."""
+    n = centers.shape[0]
+    fields = [("c", np.float32, (3,))]
+    if normal:
+        fields.append(("n", np.float32, (3,)))
+    fields.append(("rgb", np.uint8, (3,)))
+    if scale:
+        fields.append(("s", np.float32))
+    rec = np.empty(n, np.dtype(fields))
+    rec["c"] = centers
+    if normal:
+        rec["n"] = normals
+    rec["rgb"] = col_u8
+    if scale:
+        rec["s"] = scales
+    fh.write(rec.tobytes())
+    if visibility:
+        runs = np.empty((n, views.shape[1] + 1), np.uint32)
+        runs[:, 0] = nviews
+        runs[:, 1:] = views.astype(np.uint32)
+        keep = np.arange(runs.shape[1]) <= nviews[:, None]
+        fh.write(runs[keep].tobytes())
+
+
+def _write_ascii(fh, centers, normals, col_u8, scales, views, nviews,
+                 normal, scale, visibility):
+    """The rows in blocks of BLOCK, each formatted by one native call into
+    one reused buffer and written with one write."""
+    n = centers.shape[0]
+    if n == 0:
+        fh.write("\n")
+        return
+    h = native.lib()
+    b = min(n, BLOCK)
+    buf = np.empty(b * 256, np.uint8)
+    for i0 in range(0, n, b):
+        m = h.ply_format_vertices(i0, min(i0 + b, n), centers, normals,
+                                  col_u8, scales, int(normal), int(scale),
+                                  buf)
+        fh.write(str(buf[:m], "ascii"))
+    if visibility:
+        k = views.shape[1]
+        buf = np.empty(b * (12 * (k + 1) + 2), np.uint8)
+        for i0 in range(0, n, b):
+            m = h.ply_format_visibility(i0, min(i0 + b, n), k, views,
+                                        nviews, buf)
+            fh.write(str(buf[:m], "ascii"))
 
 
 def read_ext_ply(path: str):

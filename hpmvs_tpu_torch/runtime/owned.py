@@ -219,10 +219,12 @@ class OwnedSpatialEngine(SpatialEngine):
 
     def save_ply(self, path: str, binary=False, normal=True, scale=True,
                  visibility=True):
-        """Gather the global cloud; only process 0 writes."""
-        with trace.span("io.save_ply"):
+        """Gather the global cloud; only process 0 writes (the span's arg
+        is the rows written)."""
+        with trace.span("io.save_ply") as sp:
             c, n, col, s, v, nv = self.alive_arrays()
             if self.pid == 0:
+                sp.arg = len(c)
                 ply_io.write_ext_ply(path, c, n, col, s, v, nv,
                                      binary=binary, normal=normal,
                                      scale=scale, visibility=visibility)

@@ -102,8 +102,10 @@ class Engine:
     the owned engine, runtime/owned.py).
 
     native_octree: answer the octree's large queries with the native
-    library (built at first use; a failed build raises), else with numpy.
-    stats["octree_native"] records which.
+    library, else with its numpy twin. stats["octree_native"] records
+    which. The engine needs the native library whatever this says: its PLY
+    formatter writes save_ply's text, so it is built (or loaded) here,
+    never inside a run, and a failed build raises.
 
     device: the GPU unless "cpu" is asked for. mesh: a parallel.mesh.Mesh
     to shard the wavefront batches over; the engine's device is then the
@@ -162,8 +164,7 @@ class Engine:
         # (process_priority_step's inner loop): time-budget snapshots
         self.wave_hook: Optional[Callable] = None
         self._native = bool(native_octree)
-        if self._native:
-            native.lib()
+        native.lib()
         self.stats["octree_native"] = self._native
 
     # -- coordination hooks: the identity in this single-process engine;
@@ -1594,11 +1595,13 @@ class Engine:
     def save_ply(self, path: str, binary=False, normal=True, scale=True,
                  visibility=True):
         """Write the alive cloud; over several processes (every process
-        holds the same cloud) only process 0 writes."""
-        with trace.span("io.save_ply"):
+        holds the same cloud) only process 0 writes. The span's arg is the
+        rows written."""
+        with trace.span("io.save_ply") as sp:
             c, n, col, s, v, nv = self.alive_arrays()
             if self._mp and self.mesh.pid != 0:
                 return
+            sp.arg = len(c)
             ply_io.write_ext_ply(path, c, n, col, s, v, nv, binary=binary,
                                  normal=normal, scale=scale,
                                  visibility=visibility)

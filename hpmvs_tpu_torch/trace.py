@@ -15,8 +15,9 @@ Each span holds its name, its start and end in ns on `time.time_ns()`
 be put down to the spans open during it), the index of its parent in
 `records()` (-1 at the top; one stack per thread), the job it belongs to
 (the index of the `job` span in force, -1 outside one) and an optional
-integer `arg` (the priority of a `step`). The names the port opens are
-listed in README.md's "Tracing".
+integer `arg` (the priority of a `step`, the rows an `io.save_ply`
+wrote), given to `span()` or set on the object it returns inside the
+block. The names the port opens are listed in README.md's "Tracing".
 
 With tracing off `span()` returns one shared no-op object: it reads no
 clock, allocates nothing and takes no lock (on, each span takes one). `enable(annotate=True)` also
@@ -41,6 +42,9 @@ _local = threading.local()
 
 class _Noop:
     __slots__ = ()
+
+    # a block may set the arg of the span it opened; the no-op drops it
+    arg = property(lambda self: None, lambda self, value: None)
 
     def __enter__(self):
         return self

@@ -92,6 +92,23 @@ def test_nvm_round_trip_both_ways(scenes, tmp_path):
     np.testing.assert_array_equal(b.meas_xy, js.model.meas_xy)
 
 
+def _same_ply(tmp_path, args, visibility=True, **kw):
+    """Both packages' writers on the same arrays, binary and ASCII: the
+    same bytes, and the port's file of each format read back to the input's
+    centres and, with visibility, each row's view count."""
+    for binary in (True, False):
+        jply.write_ext_ply(str(tmp_path / "j.ply"), *args, binary=binary,
+                           visibility=visibility, **kw)
+        pply.write_ext_ply(str(tmp_path / "p.ply"), *args, binary=binary,
+                           visibility=visibility, **kw)
+        assert (tmp_path / "j.ply").read_bytes() == \
+            (tmp_path / "p.ply").read_bytes()
+        got = pply.read_ext_ply(str(tmp_path / "p.ply"))
+        np.testing.assert_array_equal(got["xyz"], args[0])
+        if visibility and len(args[0]):
+            assert [len(v) for v in got["visibility"]] == list(args[5])
+
+
 def test_ply_writer_identical(tmp_path):
     rng = np.random.default_rng(1)
     n = 17
@@ -100,13 +117,81 @@ def test_ply_writer_identical(tmp_path):
             rng.uniform(0, 255, (n, 3)), rng.uniform(0, 1, n).astype(np.float32),
             rng.integers(-1, 4, (n, 4)).astype(np.int32),
             rng.integers(0, 4, n))
-    for binary in (False, True):
-        jply.write_ext_ply(str(tmp_path / "j.ply"), *args, binary=binary)
-        pply.write_ext_ply(str(tmp_path / "p.ply"), *args, binary=binary)
-        assert (tmp_path / "j.ply").read_bytes() == \
-            (tmp_path / "p.ply").read_bytes()
-        got = pply.read_ext_ply(str(tmp_path / "p.ply"))
-        np.testing.assert_array_equal(got["xyz"], args[0])
+    _same_ply(tmp_path, args)
+
+
+def _cloud(rng, n, k=6, scale=1.0):
+    """n patches with k view slots: every row's nviews in 0..k, the
+    views past it -1."""
+    nv = rng.integers(0, k + 1, n)
+    nv[:2] = (0, k)[:n]
+    views = np.where(np.arange(k) < nv[:, None],
+                     rng.integers(0, 11, (n, k)), -1).astype(np.int32)
+    return [(rng.normal(size=(n, 3)) * scale).astype(np.float32),
+            rng.normal(size=(n, 3)).astype(np.float32),
+            rng.uniform(0, 255, (n, 3)),
+            rng.uniform(0, 1, n).astype(np.float32), views, nv]
+
+
+def _empty(rng):
+    return [np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32),
+            np.zeros((0, 3)), np.zeros(0, np.float32),
+            np.zeros((0, 6), np.int32), np.zeros(0, np.int64)]
+
+
+def _colours_outside(rng):
+    a = _cloud(rng, 40)
+    a[2] = rng.uniform(-400, 700, (40, 3))
+    a[2][:4] = [[-0.5, 255.5, 1e9], [-1e9, 0.0, 255.0], [254.99, 0.4, 256],
+                [-np.inf, np.inf, 128.7]]
+    return a
+
+
+def _colours_fortran(rng):
+    a = _cloud(rng, 20)
+    a[2] = rng.uniform(0, 255, (3, 20)).T
+    assert not a[2].flags.c_contiguous
+    return a
+
+
+def _nonfinite(rng):
+    a = _cloud(rng, 30, scale=1e3)
+    a[0][:5] = [[np.nan, np.inf, -np.inf], [-0.0, 0.0, -np.nan],
+                [1e-5, 1e-4, 9.999e-5], [1e15, 1e16, -1e16],
+                [1.4e-45, 3.4028235e38, -1.17549435e-38]]
+    a[1][:2] = [[-0.0, np.nan, 1.0], [123456789.0, -1.0, 0.1]]
+    a[3][:3] = [np.nan, -0.0, 1e-30]
+    return a
+
+
+@pytest.mark.parametrize("case,kw", [
+    ("empty", {}),
+    ("empty", dict(visibility=False)),
+    ("k0_and_kK", {}),
+    ("k0_and_kK", dict(normal=False, scale=False)),
+    ("colours_outside", {}),
+    ("colours_fortran", {}),
+    ("nonfinite_centres", {}),
+    ("block_boundary", {}),
+], ids=["empty", "empty_novis", "k0_and_kK", "k0_and_kK_xyz_rgb_vis",
+        "colours_outside", "colours_fortran", "nonfinite_centres",
+        "block_boundary"])
+def test_ply_writer_identical_cases(tmp_path, case, kw):
+    """The edges of the port's native ASCII formatter and vectorised binary
+    body against the JAX writer's per-patch loops: no rows, rows with no
+    view and with all K, float64 colours outside 0..255 and in Fortran
+    order, centres with nan, inf and -0.0, and a cloud crossing the
+    formatter's block of rows."""
+    rng = np.random.default_rng(7)
+    args = {"empty": _empty, "k0_and_kK": lambda r: _cloud(r, 25),
+            "colours_outside": _colours_outside,
+            "colours_fortran": _colours_fortran,
+            "nonfinite_centres": _nonfinite,
+            "block_boundary": lambda r: _cloud(r, pply.BLOCK + 4464,
+                                               scale=30.0)}[case](rng)
+    if case == "block_boundary":
+        assert len(args[0]) > pply.BLOCK
+    _same_ply(tmp_path, args, **kw)
 
 
 def test_pack_pyramids_identical(scenes):

@@ -119,6 +119,16 @@ def test_alive_cloud_is_the_same_bits_with_tracing_on(runs):
         assert np.array_equal(x, y)
 
 
+def test_save_spans_carry_the_rows_written(runs):
+    """Each io.save_ply span's arg is the rows its file holds; the last is
+    the final cloud's."""
+    _, (eng, recs) = runs
+    saves = [s for s in recs if s.name == "io.save_ply"]
+    assert len(saves) >= 2
+    assert all(type(s.arg) is int and s.arg >= 0 for s in saves)
+    assert saves[-1].arg == eng.n_alive() > 50
+
+
 def test_two_runs_give_two_job_ids(plane):
     """run_nvm_file's job and run()'s own, each holding its spans."""
     ps, nvm, d = plane
