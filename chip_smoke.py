@@ -234,9 +234,11 @@ STREAM_BUDGET_S = 240.0
 RING_BUDGET_S = 120.0
 OUT_DIR = "chiprun_out"
 # which kernels each driven path must launch
-PATH_KERNELS = {"default": ("fetch", "score", "permute", "gn"),
-                "classic": ("fetch", "score", "permute", "gn"),
-                "exactref_fd": ("fetch", "gn_fd")}
+PATH_KERNELS = {"default": ("fetch", "score", "permute", "gn", "add_views",
+                            "sort_views"),
+                "classic": ("fetch", "score", "permute", "gn", "add_views",
+                            "sort_views"),
+                "exactref_fd": ("fetch", "gn_fd", "add_views")}
 PATH_SWITCHES = {"default": {}, "classic": CLASSIC,
                  "exactref_fd": EXACTREF_FD}
 # the engine's counters each plane and facade phase reports
@@ -2016,7 +2018,9 @@ def ring_profile_phase(device):
 PROFILE_KERNELS = {"fetch_windows_kernel": "fetch",
                    "sample_views_kernel": "score",
                    "permute_windows_kernel": "permute",
-                   "gn_refine_kernel": {"exactref_fd": "gn_fd"}}
+                   "gn_refine_kernel": {"exactref_fd": "gn_fd"},
+                   "add_views_kernel": "add_views",
+                   "sort_views_kernel": "sort_views"}
 # torch's advanced-indexing gathers (t[idx]) as the profiler names them
 GATHER_KERNELS = ("index_elementwise_kernel", "vectorized_gather_kernel")
 

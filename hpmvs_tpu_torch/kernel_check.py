@@ -28,6 +28,13 @@ Tolerances:
   fetch (B1), permute (B3): bit-exact (copies).
   score (B2): 2e-5 on the normalized textures; the centre colour (raw
     0..255 values, where one float32 ulp is 1.5e-5) to 2e-5 relative.
+  add_views, sort_views (view selection, csrc/select.cu): every output
+    (views, ok, the slot order) equal to the twin's on every lane, or, on
+    at most 1 lane in 1,000, different where a deciding quantity lies
+    within 4 float32 ulps of its threshold (float64, the twin's formulas):
+    torch's projection einsum runs in an order cuBLAS picks by the batch's
+    shape, which no fixed kernel order matches at every shape (the
+    pooled-gates rule of tests/test_torch_pooled_gates.py).
   gn (B4), gn_fd (B5) and gn_debug_j: bit-equal. x and f at x0 (no
     iterations) and after the full loop, and debug_j's J, rho, f and x, are
     torch.equal to the twin's on every patch. gn.cu compiles without fused
@@ -45,9 +52,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from hpmvs_tpu_torch.ops import fetch, gn, optimizer as popt, sampling, score
+from hpmvs_tpu_torch.ops import select
 from hpmvs_tpu_torch.ops import windows as win_ops
 from hpmvs_tpu_torch.timing import call_ms, time_ms
 
@@ -61,6 +70,11 @@ KERNELS = {
     "gn": ("hpmvs_tpu_torch/csrc/gn.cu", "hpmvs_tpu/ops/pallas_gn.py:475"),
     "gn_fd": ("hpmvs_tpu_torch/csrc/gn.cu",
               "hpmvs_tpu/ops/pallas_gn.py:524"),
+    # no TPU kernel: plain-PyTorch chains of the stage pipelines
+    "add_views": ("hpmvs_tpu_torch/csrc/select.cu",
+                  "hpmvs_tpu_torch/ops/optimizer.py::_add_images_twin"),
+    "sort_views": ("hpmvs_tpu_torch/csrc/select.cu",
+                   "hpmvs_tpu_torch/ops/optimizer.py::_sort_views_twin"),
 }
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 without tensor cores
@@ -83,10 +97,10 @@ def main_path_inputs(ctx, opt, center, normal, scale, views):
     tl, du, dv, _ = score._geometry(ctx, opt, center, normal, scale, views,
                                     ws)
     b2 = dict(geom=torch.cat([tl, du, dv], dim=-1).contiguous(), win=ws.win)
-    v1, _, o1 = popt._filter_ncc_b(ctx, opt, center, normal, scale, views,
-                                   opt.NCC_ALPHA_1, ws)
-    v2, _, o2 = popt._sort_images_b(ctx, opt, center, normal, scale, v1)
-    order = torch.gather(o1, -1, o2).to(torch.int32).contiguous()
+    nccs, valid = popt._ref_nccs(ctx, opt, center, normal, scale, views, ws)
+    v2, _, order = popt._sort_views(ctx, opt, center, normal, scale, views,
+                                    nccs, valid)
+    order = order.to(torch.int32).contiguous()
     b3 = dict(win=ws.win, order=order)
     ws_sorted = score.permute_ws(ws, order)
     st, args, _ = gn._prep(ctx, opt, center, normal, scale, v2, ws_sorted)
@@ -233,6 +247,194 @@ def check_kernels(ctx, opt, center, normal, scale, views, reps: int = 10):
     out.append(_check_gn("gn_fd", fd, dataclasses.replace(fd, iters=0), args,
                          reps))
     out.append(_check_debug_j(st, args))
+    out.extend(check_select(ctx, opt, center, normal, scale, views, reps))
+    return out
+
+
+# Float32 operations of csrc/select.cu, counted from its source (sqrt, log2,
+# exp2, acos and divisions 1): addImages per candidate (ray 12, angle 5,
+# level 5, projection 20, bounds 2) and per patch (the normal's norm);
+# sortImages per slot (ray, cosine, scale) and per pair of slots in the
+# greedy rounds. The pairwise angle test stops at its first good pair and
+# is left out, so the count is a floor.
+ADD_FLOPS_PER_CAND = 44
+SORT_FLOPS_PER_SLOT = 23
+SORT_FLOPS_PER_ROUND_SLOT = 10
+PATCH_FLOPS = 12 + 17                   # normalize3, reference level
+
+
+def _differ(*pairs):
+    """Lanes (dim 0) on which any pair of outputs differs."""
+    bad = torch.zeros(pairs[0][0].shape[0], dtype=torch.bool,
+                      device=pairs[0][0].device)
+    for a, b in pairs:
+        ne = a != b
+        bad |= ne.reshape(ne.shape[0], -1).any(dim=1)
+    return bad.nonzero()[:, 0].tolist()
+
+
+def _show(bad, *pairs) -> str:
+    """The first three differing lanes' outputs, kernel / twin."""
+    return "; ".join(
+        f"lane {i}: " + " | ".join(f"{a[i].tolist()} / {b[i].tolist()}"
+                                   for a, b in pairs) for i in bad[:3])
+
+
+EPS32 = float(torch.finfo(torch.float32).eps)
+NEAR_ULPS = 4        # how near its threshold a deciding quantity may differ
+MAX_DIFFER = 1e-3    # share of lanes that may differ at all
+
+
+def _near(q, scale):
+    """Whether |q| lies within NEAR_ULPS float32 ulps of a quantity whose
+    operands have magnitude `scale` (q: the distance to the threshold)."""
+    return q.abs() <= NEAR_ULPS * EPS32 * scale
+
+
+def _near_add(ctx, opt, center, normal, scale, views, lanes):
+    """Per lane of `lanes`: whether some candidate's angle, level or bounds
+    test sits within NEAR_ULPS of its threshold (float64, the twin's
+    formulas). The projection is the one reduction whose cuBLAS order
+    changes with the batch's shape (csrc/select.cu, proj_row)."""
+    d = torch.float64
+    li = torch.as_tensor(lanes, dtype=torch.long, device=views.device)
+    c, s = center[li].to(d), scale[li].to(d)
+    nz = normal[li].to(d)
+    nz = nz / nz.norm(dim=-1, keepdim=True)
+    cand = ctx.covis[views[li, 0].clamp(min=0).long()].clamp(min=0).long()
+    cams = ctx.cams
+    dv = cams.center[cand].to(d) - c[:, None]
+    fz = dv.norm(dim=-1)
+    near = _near(((dv / fz[..., None]) * nz[:, None]).sum(-1)
+                 - sampling.cos32(opt.MAX_ANGLE), torch.ones_like(fz))
+    lv = torch.log2(s[:, None] * cams.fsum[cand].to(d) / (2 * fz))
+    near |= _near(lv - torch.floor(lv) - 0.5, torch.ones_like(lv))
+    lvl = torch.round(lv).clamp(0, opt.MAXLEVEL).nan_to_num().long()
+    P = cams.P[cand, lvl].to(d)                       # (n, C, 3, 4)
+    ch = torch.cat([c, torch.ones_like(c[:, :1])], -1)[:, None, None]
+    terms = P * ch
+    r, mag = terms.sum(-1), terms.abs().sum(-1)
+    near |= _near(r[..., 2], mag[..., 2])
+    for i, lim in ((0, ctx.imgs.width), (1, ctx.imgs.height)):
+        u = r[..., i] / r[..., 2]
+        m = (mag[..., i] + u.abs() * mag[..., 2]) / r[..., 2].abs()
+        near |= _near(u, m) | _near(u - (lim[cand, lvl].to(d) - 1), m)
+    return near.any(dim=1).tolist()
+
+
+def _near_sort(ctx, opt, center, normal, views, lanes):
+    """Per lane of `lanes`: whether a sorted pair's angle (the pair dots'
+    cuBLAS order differs for a batch of one patch) or a view's cosine
+    sits within NEAR_ULPS of its threshold (float64)."""
+    d = torch.float64
+    li = torch.as_tensor(lanes, dtype=torch.long, device=views.device)
+    c = center[li].to(d)
+    nz = normal[li].to(d)
+    nz = nz / nz.norm(dim=-1, keepdim=True)
+    v = views[li]
+    rays = ctx.cams.center[v.clamp(min=0).long()].to(d) - c[:, None]
+    rays = rays / rays.norm(dim=-1, keepdim=True)
+    near = _near((rays * nz[:, None]).sum(-1), torch.ones_like(rays[..., 0]))
+    near = near.any(dim=1)
+    ang = torch.arccos(torch.einsum("nkd,njd->nkj", rays, rays).clamp(-1, 1))
+    # d(acos)/d(dot) = 1/sin, and acos near a dot of +-1 goes as its sqrt
+    sin = torch.sin(ang).clamp(min=EPS32 ** 0.5)
+    eye = torch.eye(v.shape[1], dtype=torch.bool, device=v.device)
+    pair = (v[:, :, None] >= 0) & (v[:, None, :] >= 0) & ~eye
+    for a in (opt.MIN_ANGLE, opt.MAX_ANGLE):
+        near |= (pair & _near(ang - a, 1.0 / sin)).flatten(1).any(dim=1)
+    return near.tolist()
+
+
+def _agree(bad, B, near) -> bool:
+    """The view-selection rule: equal on every lane, or at most MAX_DIFFER
+    of the lanes differ and each has a deciding quantity within NEAR_ULPS
+    of its threshold (near: one flag per differing lane)."""
+    return not bad or (len(bad) <= MAX_DIFFER * B and all(near))
+
+
+def edge_lanes(ctx, batch, seed: int):
+    """A batch (center, normal, scale, views) of at least 640 lanes with
+    edge lanes written in (numpy, seeded), for check_select: every slot
+    invalid (lanes 0-63), reference camera 0 (64-127: give camera 0 no
+    covisible candidates to test that), normals facing away, so fewer than
+    2 sort candidates (128-191), duplicated views, so exact wscale ties
+    (192-255), random slots (256-511). Returns (batch, nccs, valid): NCCs on
+    a grid of eighths (exact ties), at the filter threshold on lanes
+    512-639, and random valid masks, for sort_in."""
+    c, n, s, v = (a.cpu().numpy().copy() for a in batch)
+    B, K = v.shape
+    rng = np.random.default_rng(seed)
+    ncam = ctx.covis.shape[0]
+    v[:64] = -1
+    v[64:128, 0] = 0
+    n[128:192] = -n[128:192]
+    v[192:256, 1:4] = v[192:256, :1]
+    v[256:512] = rng.integers(-1, ncam, (256, K))
+    nccs = (rng.integers(0, 9, (B, K)) / 8.0).astype(np.float32)
+    nccs[512:640] = np.float32(0.4)
+    valid = rng.random((B, K)) > 0.15
+    valid[:, 0] |= rng.random(B) > 0.5
+    dev = batch[0].device
+    out = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+           for a in (c, n, s, v.astype(np.int32))]
+    return (out, torch.as_tensor(nccs, device=dev),
+            torch.as_tensor(valid, device=dev))
+
+
+def check_select(ctx, opt, center, normal, scale, views, reps: int = 10,
+                 sort_in=None):
+    """The two view-selection kernels against their twins on one batch:
+    add_views on (center, normal, scale, views), then sort_views on the
+    kernel's views, the NCCs of their fetched windows and the score
+    kernel's valid slots (sort_in = (views, nccs, valid) replaces these).
+    Returns [add_views, sort_views] KernelResults; each detail names the
+    differing lanes (at most 20), max_abs_err counts them. reps=0 times
+    nothing (the times are then NaN)."""
+    def times(fn, twin):
+        if not reps:
+            return float("nan"), float("nan"), float("nan")
+        return (*both_ms(fn, reps), call_ms(twin, reps))
+
+    normal = sampling.normalize3(normal)
+    a_in = (ctx, opt, center, normal, scale, views)
+    kv, kok = select.add_views(*a_in)
+    pv, pok = popt._add_images_twin(*a_in)
+    B, K = views.shape
+    C = ctx.covis.shape[1]
+    cams, imgs = ctx.cams, ctx.imgs
+    bad = _differ((kv, pv), (kok, pok))
+    near = _near_add(*a_in, bad) if bad else []
+    out = [KernelResult(
+        "add_views", float(len(bad)),
+        *times(lambda: select.add_views(*a_in),
+               lambda: popt._add_images_twin(*a_in)), _agree(bad, B, near),
+        f"B={B} K={K} C={C}: views and ok equal on {B - len(bad)} of {B} "
+        f"lanes; differing lanes {bad[:20]}, near a threshold {near[:20]}; "
+        f"ok {int(kok.sum())}; {_show(bad, (kv, pv), (kok, pok))}",
+        bytes=nbytes(views, center, normal, scale, kv, kok, ctx.covis,
+                     cams.center, cams.fsum, cams.P, imgs.width, imgs.height),
+        flops=B * (12 + C * ADD_FLOPS_PER_CAND))]
+    if sort_in is None:
+        ws = popt._fetch_ws_b(ctx, opt, kv, center, scale)
+        sort_in = (kv, *popt._ref_nccs(ctx, opt, center, normal, scale, kv,
+                                       ws))
+    s_in = (ctx, opt, center, normal, scale, *sort_in)
+    kv, kok, ko = select.sort_views(*s_in)
+    pv, pok, po = popt._sort_views_twin(*s_in)
+    bad = _differ((kv, pv), (kok, pok), (ko.long(), po))
+    near = _near_sort(ctx, opt, center, normal, pv, bad) if bad else []
+    out.append(KernelResult(
+        "sort_views", float(len(bad)),
+        *times(lambda: select.sort_views(*s_in),
+               lambda: popt._sort_views_twin(*s_in)), _agree(bad, B, near),
+        f"B={B} K={K}: views, ok and order equal on {B - len(bad)} of {B} "
+        f"lanes; differing lanes {bad[:20]}, near a threshold {near[:20]}; "
+        f"ok {int(kok.sum())}; {_show(bad, (kv, pv), (kok, pok), (ko, po))}",
+        bytes=nbytes(*sort_in, center, normal, scale, kv, kok, ko,
+                     cams.center, cams.fsum),
+        flops=B * (PATCH_FLOPS + K * SORT_FLOPS_PER_SLOT
+                   + K * K * SORT_FLOPS_PER_ROUND_SLOT)))
     return out
 
 

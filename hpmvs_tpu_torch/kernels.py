@@ -2,11 +2,12 @@
 
 The kernels are compiled at first use with nvcc for sm_90a into one shared
 library with a plain C interface under <repo>/build/, and bound with ctypes:
-one nvcc per source, all started together, then one link. gn.cu compiles
-without fused multiply-add contraction (SOURCE_FLAGS): its kernel then
-rounds every operation as its plain PyTorch twin does, which the FD/Broyden
-mode needs to be comparable at all (its trajectories are chaotic: a 1e-7
-change of rho moves a few percent of them within four rounds).
+one nvcc per source, all started together, then one link. gn.cu and
+select.cu compile without fused multiply-add contraction (SOURCE_FLAGS):
+their kernels then round every operation as their plain PyTorch twins do,
+which the FD/Broyden mode needs to be comparable at all (its trajectories
+are chaotic: a 1e-7 change of rho moves a few percent of them within four
+rounds), and view selection to pick the twin's views.
 Nothing is compiled at import time: the CPU tests import every module, and a
 CPU tensor never reaches a kernel (each wrapper runs its plain PyTorch twin
 for CPU tensors instead).
@@ -30,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-SOURCE_FLAGS = {"gn.cu": ["-fmad=false"]}
+SOURCE_FLAGS = {"gn.cu": ["-fmad=false"], "select.cu": ["-fmad=false"]}
 
 
 @dataclasses.dataclass
@@ -43,7 +44,8 @@ class KernelStats:
 # one entry per kernel wrapper (name -> counts); chip_smoke.py and the CUDA
 # tests reset and read them to show which path a run took
 STATS = {name: KernelStats()
-         for name in ("fetch", "score", "permute", "gn", "gn_fd")}
+         for name in ("fetch", "score", "permute", "gn", "gn_fd",
+                      "add_views", "sort_views")}
 
 
 def reset_counts() -> None:
@@ -130,7 +132,8 @@ def lib() -> ctypes.CDLL:
         for name in ("hpmvs_fetch_windows", "hpmvs_sample_views",
                      "hpmvs_permute_windows", "hpmvs_gn_refine",
                      "hpmvs_gn_refine_fd", "hpmvs_gn_debug_j",
-                     "hpmvs_gn_launch_info"):
+                     "hpmvs_gn_launch_info", "hpmvs_add_views",
+                     "hpmvs_sort_views"):
             getattr(handle, name).restype = ctypes.c_int
         _Lib.handle, _Lib.path = handle, path
     return _Lib.handle

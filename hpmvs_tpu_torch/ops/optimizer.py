@@ -35,11 +35,11 @@ import dataclasses
 
 import torch
 
-from hpmvs_tpu_torch import trace
+from hpmvs_tpu_torch import kernels, trace
 from hpmvs_tpu_torch.config import Options
 from hpmvs_tpu_torch.geom import camera as cam_ops
 from hpmvs_tpu_torch.image.pyramid import ImagePack
-from hpmvs_tpu_torch.ops import gn, sampling, score
+from hpmvs_tpu_torch.ops import gn, sampling, score, select
 from hpmvs_tpu_torch.ops import windows as win_ops
 
 INVALID = -1
@@ -296,7 +296,17 @@ def _fetch_ws_b(ctx, opt: Options, views, center, scale, prev=None,
 
 
 def _add_images_b(ctx, opt: Options, center, normal, scale, views):
-    """Batched addImages (PatchOptimizer.cpp:225-258). normal must be unit."""
+    """Batched addImages (PatchOptimizer.cpp:225-258). normal must be unit.
+    CUDA tensors launch the add_views kernel (ops/select.py); CPU tensors
+    run its twin."""
+    if views.is_cuda:
+        return select.add_views(ctx, opt, center, normal, scale, views)
+    return _add_images_twin(ctx, opt, center, normal, scale, views)
+
+
+def _add_images_twin(ctx, opt: Options, center, normal, scale, views):
+    """Plain PyTorch version of the add_views kernel (csrc/select.cu)."""
+    kernels.STATS["add_views"].twin_calls += 1
     ref_valid = views[:, 0] >= 0
     ref = torch.clamp(views[:, 0], min=0).long()
     cand = ctx.covis[ref]                                   # (B, C)
@@ -343,21 +353,12 @@ def _sample_views_b(ctx, opt: Options, center, normal, scale, views, ws,
     return (out[0], out[1] & (views >= 0)) + tuple(out[2:])
 
 
-def _filter_ncc_b(ctx, opt: Options, center, normal, scale, views, alpha,
-                  ws):
-    """Batched filterImagesNCC (PatchOptimizer.cpp:138-152). Returns the
-    compaction order too; callers compose it into one window permute."""
+def _ref_nccs(ctx, opt: Options, center, normal, scale, views, ws):
+    """NCC of every view slot against slot 0 (B, K), and the slots whose
+    texture was sampled (B, K) bool."""
     tex, valid = _sample_views_b(ctx, opt, center, normal, scale, views, ws)
-    ref_ok = valid[:, 0]
     nccs = torch.einsum("bkpc,bpc->bk", tex, tex[:, 0]) / sampling.N_TEXELS
-    two = torch.full_like(nccs, 2.0)
-    inccs = torch.where(valid & ref_ok[:, None], 1.0 - nccs, two)
-    inccs[:, 0] = torch.where(ref_ok, 0.0, 2.0)
-    keep = (views >= 0) & (inccs < 1.0 - alpha)
-    keep[:, 0] = views[:, 0] >= 0  # always keep the reference
-    new_views, order = _compact(views, keep)
-    ok = _nviews(new_views) >= opt.MIN_IMAGES_PER_PATCH
-    return new_views, ok, order
+    return nccs, valid
 
 
 def _sort_images_b(ctx, opt: Options, center, normal, scale, views):
@@ -437,6 +438,37 @@ def _assure_angles_b(ctx, opt: Options, center, views):
     return torch.any(good.reshape(good.shape[0], -1), dim=-1)
 
 
+def _sort_views(ctx, opt: Options, center, normal, scale, views, nccs,
+                valid):
+    """filterImagesNCC(NCC_ALPHA_1) + sortImages + assureImageAngles of the
+    pre stage. CUDA tensors launch the sort_views kernel (ops/select.py);
+    CPU tensors run its twin. Returns (views, ok, order: the composition of
+    the filter compaction and the sort permutation)."""
+    if views.is_cuda:
+        return select.sort_views(ctx, opt, center, normal, scale, views, nccs,
+                                 valid)
+    return _sort_views_twin(ctx, opt, center, normal, scale, views, nccs,
+                            valid)
+
+
+def _sort_views_twin(ctx, opt: Options, center, normal, scale, views, nccs,
+                     valid):
+    """Plain PyTorch version of the sort_views kernel (csrc/select.cu)."""
+    kernels.STATS["sort_views"].twin_calls += 1
+    # filterImagesNCC (PatchOptimizer.cpp:138-152), compaction order o1
+    ref_ok = valid[:, 0]
+    two = torch.full_like(nccs, 2.0)
+    inccs = torch.where(valid & ref_ok[:, None], 1.0 - nccs, two)
+    inccs[:, 0] = torch.where(ref_ok, 0.0, 2.0)
+    keep = (views >= 0) & (inccs < 1.0 - opt.NCC_ALPHA_1)
+    keep[:, 0] = views[:, 0] >= 0  # always keep the reference
+    views, o1 = _compact(views, keep)
+    ok1 = _nviews(views) >= opt.MIN_IMAGES_PER_PATCH
+    views, ok2, o2 = _sort_images_b(ctx, opt, center, normal, scale, views)
+    ok = ok1 & ok2 & _assure_angles_b(ctx, opt, center, views)
+    return views, ok, torch.gather(o1, -1, o2)
+
+
 def _run_pre_b(ctx, opt: Options, center, normal, scale, views):
     """First half of runOptimization (growth + filters + sort). The window
     cache is permuted ONCE (kernel B3) with the composition of the filter
@@ -444,14 +476,11 @@ def _run_pre_b(ctx, opt: Options, center, normal, scale, views):
     normal = sampling.normalize3(normal)
     views, ok = _add_images_b(ctx, opt, center, normal, scale, views)
     ws = _fetch_ws_b(ctx, opt, views, center, scale)
-    views, ok1, o1 = _filter_ncc_b(ctx, opt, center, normal, scale, views,
-                                   opt.NCC_ALPHA_1, ws)
-    ok &= ok1
-    views, ok2, o2 = _sort_images_b(ctx, opt, center, normal, scale, views)
-    ok &= ok2
-    ok &= _assure_angles_b(ctx, opt, center, views)
-    ws = score.permute_ws(ws, torch.gather(o1, -1, o2))
-    return center, normal, views, ok, ws
+    nccs, valid = _ref_nccs(ctx, opt, center, normal, scale, views, ws)
+    views, ok1, order = _sort_views(ctx, opt, center, normal, scale, views,
+                                    nccs, valid)
+    ws = score.permute_ws(ws, order)
+    return center, normal, views, ok & ok1, ws
 
 
 def _run_post_b(ctx, opt: Options, center, normal, scale, views, ok,

@@ -41,11 +41,13 @@ def results():
 
 
 @pytest.mark.parametrize("name", ["fetch", "score", "permute", "gn", "gn_fd",
-                                  "gn_debug_j"])
+                                  "gn_debug_j", "add_views", "sort_views"])
 def test_kernel_matches_twin(results, name):
     """gn_fd is the GN kernel's FD/Broyden mode, gn_debug_j its debug_j
     output (counted with the exact mode's launches). The three GN results
-    are ok only when bit-equal to the twin (kernel_check._check_gn)."""
+    are ok only when bit-equal to the twin (kernel_check._check_gn), the two
+    view-selection results when every output equals the twin's on every
+    lane (kernel_check.check_select)."""
     r = results[name]
     assert r.ok, r.detail
     assert kernels.STATS[{"gn_debug_j": "gn"}.get(name, name)].launches > 0
@@ -160,3 +162,65 @@ def test_fetch_kernel_reads_a_slab(results):
         assert r["equal_twin"] and r["equal_full"], r
         assert 0 < r["compared"] and r["live"] < r["n"]
     assert kernels.STATS["fetch"].launches > 0
+
+
+@pytest.fixture(scope="module")
+def facade():
+    """A 512 px facade at MAX_VIEWS = 16 (the default) and its seed patches
+    tiled to B = 2048, with centres and normals jittered (numpy, seeded)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from hpmvs_tpu_torch.testing import make_facade_scene
+    opt = dataclasses.replace(Options(), START_LEVEL=2, COVIS_MIN_POINTS=10)
+    fs = make_facade_scene(n_cams=11, imgsize=512, n_points=300, seed=0)
+    sc = scene_mod.build_scene(fs.model, opt, images=fs.images, device="cuda")
+    c, n, s, v, _ = scene_mod.make_seed_patches(fs.model, sc, opt)
+    B = 2048
+    rng = np.random.default_rng(1)
+    idx = np.arange(B) % len(c)
+    cc = c[idx] + rng.normal(0, 0.01, (B, 3)).astype(np.float32)
+    nn = n[idx] + rng.normal(0, 0.2, (B, 3)).astype(np.float32)
+    batch = [torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+             for a in (cc, nn, s[idx], v[idx])]
+    return opt, sc.ctx, batch
+
+
+def test_select_at_k16(facade):
+    """add_views and sort_views at K = 16 with C >= 10 candidates, B = 2048:
+    every output equal to the twin's; the detail carries the device ms,
+    bound and twin ms (PERF.md section 6)."""
+    opt, ctx, batch = facade
+    assert batch[3].shape[1] == 16 and ctx.covis.shape[1] >= 10
+    kernels.reset_counts()
+    res = kernel_check.check_select(ctx, opt, *batch, reps=5)
+    for r in res:
+        print(r.name, r.device_ms, r.bound_ms, r.plain_ms, r.detail)
+        assert r.ok, r.detail
+    assert kernels.STATS["add_views"].launches > 0
+    assert kernels.STATS["sort_views"].launches > 0
+
+
+@pytest.mark.parametrize("subset", [False, True])
+def test_select_edge_cases(facade, subset):
+    """Both kernels against their twins on kernel_check.edge_lanes, with
+    covisibility emptied for camera 0, and (subset) an image table of
+    zero dims for the cameras a per-block slab leaves out: every output
+    equal to the twin's."""
+    opt, ctx, batch = facade
+    covis = ctx.covis.clone()
+    covis[0] = -1
+    imgs = ctx.imgs
+    if subset:
+        absent = torch.tensor([1, 4, 7], device=covis.device)
+        w, h = imgs.width.clone(), imgs.height.clone()
+        w[absent] = 0
+        h[absent] = 0
+        imgs = imgs._replace(width=w, height=h)
+    ectx = dataclasses.replace(ctx, covis=covis, imgs=imgs)
+    eb, nccs, valid = kernel_check.edge_lanes(ectx, batch, seed=int(subset))
+    # sort_views on the pipeline's NCCs of the grown views, then on the
+    # edge lanes' own views, NCCs and valid masks
+    for sort_in in (None, (eb[3], nccs, valid)):
+        for r in kernel_check.check_select(ectx, opt, *eb, reps=0,
+                                           sort_in=sort_in):
+            assert r.ok, r.detail

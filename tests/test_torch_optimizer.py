@@ -76,10 +76,12 @@ def test_optimize_batch_matches_jax(outputs):
 def test_optimize_batch_runs_every_twin(outputs):
     """On CPU tensors every kernel wrapper takes its twin, once per call
     site: fetch twice (pre and post stage), score twice, permute and GN
-    once; no kernel launches."""
+    once, add_views twice (pre and post stage) and sort_views once; no
+    kernel launches."""
     *_, stats = outputs
     assert {k: v["twin_calls"] for k, v in stats.items()} == \
-        {"fetch": 2, "score": 2, "permute": 1, "gn": 1, "gn_fd": 0}
+        {"fetch": 2, "score": 2, "permute": 1, "gn": 1, "gn_fd": 0,
+         "add_views": 2, "sort_views": 1}
     assert all(v["launches"] == 0 for v in stats.values())
 
 

@@ -258,7 +258,8 @@ def test_run_pre_and_post(S):
     np.testing.assert_allclose(ppost[5].numpy()[same],
                                np.asarray(jpost[5])[same], atol=1e-3)
     assert {k: v.twin_calls for k, v in kernels.STATS.items()} == \
-        {"fetch": 2, "score": 0, "permute": 0, "gn": 0, "gn_fd": 0}
+        {"fetch": 2, "score": 0, "permute": 0, "gn": 0, "gn_fd": 0,
+         "add_views": 2, "sort_views": 0}
 
 
 def _hold(jc, jn, jf, jok, pc, pn, pf, pok, ok_frac=1.0, normal_frac=0.90):
@@ -360,20 +361,23 @@ def test_optimize_batch_matches_jax(S, name):
           normal_frac=0.90 if po.LM_EXACT_J else 0.85)
     calls = {k: v.twin_calls for k, v in kernels.STATS.items()}
     refiner = "gn" if po.LM_EXACT_J else "gn_fd"
+    # addImages runs in both halves of every pipeline
     if name == "nowindows":
-        assert not any(calls.values())
+        assert calls == {"fetch": 0, "score": 0, "permute": 0, "gn": 0,
+                         "gn_fd": 0, "add_views": 2, "sort_views": 0}
     elif name == "fd":
         assert calls == {"fetch": 2, "score": 2, "permute": 1, "gn": 0,
-                         "gn_fd": 1}
+                         "gn_fd": 1, "add_views": 2, "sort_views": 1}
     else:
         assert calls == {"fetch": 2, "score": 0, "permute": 0,
-                         "gn": refiner == "gn", "gn_fd": refiner == "gn_fd"}
+                         "gn": refiner == "gn", "gn_fd": refiner == "gn_fd",
+                         "add_views": 2, "sort_views": 0}
 
 
 def test_exactref_fd_twin_calls(S):
     """The per-patch path with the FD GN mode (chip_smoke's
-    plane_exactref_fd) runs fetch twice and the FD refinement once, and no
-    batched-stage kernel."""
+    plane_exactref_fd) runs fetch and add_views twice and the FD
+    refinement once, and no other batched-stage kernel."""
     _, po = _opts(FAST_SETREF=False, LM_EXACT_J=False)
     kernels.reset_counts()
     popt.optimize_batch(S["ctx"], po, *(t(a) for a in (S["c"], S["n"],
@@ -381,7 +385,7 @@ def test_exactref_fd_twin_calls(S):
     assert {k: (v.launches, v.twin_calls)
             for k, v in kernels.STATS.items()} == {
         "fetch": (0, 2), "score": (0, 0), "permute": (0, 0), "gn": (0, 0),
-        "gn_fd": (0, 1)}
+        "gn_fd": (0, 1), "add_views": (0, 2), "sort_views": (0, 0)}
 
 
 def test_engine_exactref_fd_matches_jax_engine(tmp_path):
